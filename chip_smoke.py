@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port's main path once on the card, and check it.
+
+The path is the SPANN cluster index on the device, at the size of the
+standard 1M ANN sets: 1,000,000 deep-analog vectors (DEEP10M's shape, 96-d
+float32) and 10,000 queries.
+
+1. build both CUDA kernels from this checkout's sources (one nvcc each, all
+   started together);
+2. build the index: host BKT (numpy), then closure replication through the
+   fused ``l2_topk`` kernel; move ``device_arrays`` to the card;
+3. ground truth with ``exact_topk`` (``l2_topk``), k=10;
+4. ``device_search_batch`` at nprobe 16 and 64 in batches of 512 (the
+   centroid probe runs ``l2_distance``): recall@10 and queries/s;
+5. hold each kernel against its plain PyTorch version on the card at the
+   shapes the main path gave it, and time kernel, plain version and the
+   PyTorch library call where there is one.
+
+Launch counts are zeroed just before each main-path phase and read just
+after it; the comparisons in step 5 are not counted.  Prints one
+``{"kernels": [...]}`` line, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failed check exits
+nonzero before that line; so does a machine without CUDA, or a directory
+without the rest of the repository.
+
+    python3 chip_smoke.py [--n 1000000] [--queries 10000] [--out PATH]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+BATCH = 512
+K = 10
+NPROBES = (16, 64)
+TOL = 1e-5   # |kernel - plain| <= TOL * (|q|^2 + |x|^2): f32 cancellation bound
+
+# (FP32 FLOP/s outside the tensor cores, memory bytes/s) of the SXM parts
+# from NVIDIA's data sheets, by torch.cuda.get_device_name(); the rates
+# assume the 700 W power limit, which nvidia-smi's line reports beside them.
+PEAKS = (("H100 80GB HBM3", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def phase(name: str, t0: float) -> float:
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.3f} s", flush=True)
+    return now
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_peaks(name: str) -> tuple[float, float]:
+    for key, flops, bw in PEAKS:
+        if key in name:
+            return flops, bw
+    raise SystemExit(f"chip_smoke: no data-sheet peak for {name!r}")
+
+
+def l2_bound_ms(Q: int, N: int, D: int, out_bytes: int, peaks) -> tuple[float, str]:
+    """Least time for the squared-L2 work: operations (products, norms,
+    combine) at the FP32 peak vs bytes (inputs once, output once)."""
+    flops = 2 * Q * N * D + 2 * (Q + N) * D + 3 * Q * N
+    nbytes = 4 * (Q + N) * D + out_bytes
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def norm_tol(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    qf, xf = q.float(), x.float()
+    return TOL * ((qf * qf).sum(-1)[:, None] + (xf * xf).sum(-1)[None, :]) + 1e-6
+
+
+def near_tie_rows(got_ids, want_ids, q, x, tol_row) -> tuple[int, bool]:
+    """Rows whose id lists differ, and whether every such row is a near-tie:
+    the exact (float64) distances of the two lists, each sorted, agree
+    within the row's f32 tolerance at every rank."""
+    diff = (got_ids != want_ids).any(1).nonzero()[:, 0]
+    if len(diff) == 0:
+        return 0, True
+    qd, xd = q[diff].double(), x.double()
+
+    def exact(ids):
+        sel = xd[ids[diff].clamp_min(0).long()]                 # (r, k, D)
+        return ((sel - qd[:, None, :]) ** 2).sum(-1).sort(-1).values
+
+    gap = (exact(got_ids) - exact(want_ids)).abs()
+    return len(diff), bool((gap <= 2 * tol_row[diff][:, None]).all())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the full report as JSON here")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.cluster_index import (ClusterIndex, closure_pairs,
+                                                device_search_batch)
+    from repro_torch.core.flat import exact_topk
+    from repro_torch.core.types import ClusterIndexParams, recall_at_k
+    from repro_torch.data.synth import DEEP_ANALOG, make_dataset, scaled
+    from repro_torch.exec import batched_topk, scan_topk_oracle
+    from repro_torch.kernels import _build, distance, fused_topk
+    from repro_torch.kernels.ref import (full_f32_matmul, l2_distance_ref,
+                                         l2_topk_ref)
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
+          flush=True)
+    report: dict = {"card": smi, "n": args.n, "queries": args.queries}
+
+    # ---- 1. kernels, built from this checkout --------------------------
+    t = time.perf_counter()
+    for src, log in _build.build_all().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {src}: {line.strip()}")
+    report["kernel_build_s"] = time.perf_counter() - t
+    t = phase("build kernels", t)
+
+    # ---- 2. data and index ---------------------------------------------
+    data, queries = make_dataset(scaled(DEEP_ANALOG, args.n, args.queries))
+    t = phase("make data", t)
+
+    def reset():
+        distance.l2_distance.launches = 0
+        fused_topk.l2_topk.launches = 0
+
+    def counts():
+        return {"l2_distance": distance.l2_distance.launches,
+                "l2_topk": fused_topk.l2_topk.launches}
+
+    launches = {}
+    params = ClusterIndexParams(kmeans_iters=4, seed=0)
+    reset()
+    index = ClusterIndex.build(data, params, device=dev)
+    torch.cuda.synchronize()
+    launches["build"] = counts()
+    report["build_s"] = time.perf_counter() - t
+    t = phase("index build (host BKT + closure on the card)", t)
+    require(launches["build"]["l2_topk"] == math.ceil(args.n / 4096),
+            f"closure replication launched l2_topk {launches['build']}")
+
+    arrs = index.device_arrays()
+    dv = {key: torch.from_numpy(v).to(dev) for key, v in arrs.items()}
+    torch.cuda.synchronize()
+    L, ml, D = dv["list_vecs"].shape
+    entries = int(arrs["list_len"].sum())
+    dev_bytes = sum(v.numel() * v.element_size() for v in dv.values())
+    report["index"] = {"lists": L, "entries": entries, "max_len": ml,
+                       "replication": entries / args.n,
+                       "device_bytes": dev_bytes}
+    print(f"index: {L} lists, {entries} entries ({entries / args.n:.3f}x), "
+          f"max list {ml}, device_arrays {dev_bytes} bytes on {dv['list_vecs'].device}")
+    t = phase("device arrays", t)
+
+    reset()
+    gt, _ = exact_topk(data, queries, K, device=dev)
+    launches["ground_truth"] = counts()
+    t = phase("ground truth (exact_topk)", t)
+    require(launches["ground_truth"]["l2_topk"] == math.ceil(args.queries / 512),
+            f"exact_topk launched {launches['ground_truth']}")
+
+    qt = torch.from_numpy(queries).to(dev)
+
+    def search(nprobe, lo, hi):
+        return device_search_batch(dv["centroids"], dv["list_vecs"],
+                                   dv["list_ids"], qt[lo:hi],
+                                   nprobe=nprobe, k=K)
+
+    search(NPROBES[0], 0, BATCH)             # warm-up: cuBLAS and sort set-up
+    report["search"] = {}
+    for nprobe in NPROBES:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [search(nprobe, s, s + BATCH)
+                for s in range(0, args.queries, BATCH)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[f"search_nprobe{nprobe}"] = counts()
+        ids = torch.cat([o[0] for o in outs]).cpu().numpy()
+        dists = torch.cat([o[1] for o in outs]).cpu().numpy()
+        rec = float(np.mean([recall_at_k(ids[i], gt[i])
+                             for i in range(args.queries)]))
+        require(launches[f"search_nprobe{nprobe}"]["l2_distance"]
+                == math.ceil(args.queries / BATCH), f"search launched {counts()}")
+        require(ids.shape == (args.queries, K) and ((ids >= -1) & (ids < args.n)).all(),
+                "search ids out of range")
+        valid = ids >= 0
+        require(np.isfinite(dists[valid]).all() and valid.all(axis=1).all(),
+                "search returned fewer than k finite results")
+        require(all(len(set(r)) == K for r in ids), "duplicate ids in a result row")
+        report["search"][nprobe] = {"recall@10": rec, "qps": args.queries / dt,
+                                    "seconds": dt}
+        print(f"search nprobe={nprobe}: recall@10 {rec:.4f}, "
+              f"{args.queries / dt:.1f} queries/s ({dt:.3f} s)")
+        t = phase(f"search nprobe={nprobe}", t)
+    rec = [report["search"][p]["recall@10"] for p in NPROBES]
+    require(rec[-1] >= rec[0] and rec[-1] >= 0.5, f"recall {rec}")
+    report["launches"] = launches
+    print("launches on the main path: " + json.dumps(launches))
+
+    # where one search batch's device time goes: kernels by self device
+    # time, and the share of the batch's wall time the card sat idle
+    report["search_profile"] = {}
+    for nprobe in NPROBES:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            search(nprobe, 0, BATCH)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in kern)
+        top = [(e.key[:60], round(e.self_device_time_total, 1)) for e in kern[:8]]
+        report["search_profile"][nprobe] = {
+            "wall_us": wall_us, "device_busy_us": busy_us, "top_kernels_us": top}
+        print(f"profile nprobe={nprobe}, one batch of {BATCH}: wall {wall_us:.0f} us, "
+              f"device busy {busy_us:.0f} us (idle share "
+              f"{1 - busy_us / wall_us:.3f}); top kernels (us): {top}")
+    t = phase("profile one search batch per nprobe", t)
+
+    # the card's answers against the plain path on the CPU, same arrays
+    cpu_ids, _ = device_search_batch(
+        *(torch.from_numpy(arrs[key]) for key in ("centroids", "list_vecs",
+                                                  "list_ids")),
+        torch.from_numpy(queries[:64]), nprobe=16, k=K)
+    card_ids = search(16, 0, 64)[0].cpu()
+    overlap = np.mean([len(np.intersect1d(card_ids[i], cpu_ids[i])) / K
+                       for i in range(64)])
+    same_rows = int((card_ids == cpu_ids).all(1).sum())
+    print(f"card vs CPU plain path, 64 queries at nprobe 16: {same_rows} rows "
+          f"identical, mean overlap {overlap:.4f}")
+    require(overlap >= 0.99, "card search disagrees with the CPU plain path")
+    t = phase("card vs CPU search", t)
+
+    # ---- 5. kernels against their plain versions, main-path shapes ----
+    kernels = []
+    cents = dv["centroids"]
+    del dv["list_vecs"]
+    torch.cuda.empty_cache()
+
+    # l2_distance at the probe: 512 queries x L centroids
+    qp = qt[:BATCH]
+    tol = norm_tol(qp, cents)
+    got = distance.l2_distance(qp, cents)
+    want = l2_distance_ref(qp, cents)
+    err32 = (got - want).abs()
+    dist_err = float(err32.max())
+    require(bool((err32 <= tol).all()), f"l2_distance f32 err {dist_err}")
+    qb, cb = qp.bfloat16(), cents.bfloat16()
+    errbf = (distance.l2_distance(qb, cb) - l2_distance_ref(qb, cb)).abs()
+    require(bool((errbf <= norm_tol(qb, cb)).all()),
+            f"l2_distance bf16 err {errbf.max().item()}")
+    scale = 127.0 / max(qp.abs().max().item(), cents.abs().max().item())
+    qi = (qp * scale).round().clamp(-127, 127).to(torch.int8)
+    ci = (cents * scale).round().clamp(-127, 127).to(torch.int8)
+    require(torch.equal(distance.l2_distance(qi, ci), l2_distance_ref(qi, ci)),
+            "l2_distance int8 not exact")
+    del got, want, err32, errbf
+    with full_f32_matmul():   # the yardstick in full f32, as the kernels
+        lib_ms = time_ms(lambda: torch.cdist(
+            qp, cents, compute_mode="use_mm_for_euclid_dist"), 10)
+    k_ms = time_ms(lambda: distance.l2_distance(qp, cents), 20)
+    p_ms = time_ms(lambda: l2_distance_ref(qp, cents), 10)
+    b_ms, b_by = l2_bound_ms(BATCH, L, D, 4 * BATCH * L, peaks)
+    kernels.append({
+        "name": "l2_distance", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/l2_distance.cu",
+        "replaces": "src/repro/kernels/distance.py:65",
+        "launches": sum(c["l2_distance"] for c in launches.values()),
+        "max_abs_err": dist_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+        "library": "torch.cdist(use_mm_for_euclid_dist): root of the same matrix",
+        "shape": f"{BATCH}x{L}x{D} f32 (centroid probe)",
+        "checked": "f32 and bf16 within 1e-5*(|q|^2+|x|^2); int8 exact"})
+    print(f"l2_distance {BATCH}x{L}x{D}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, cdist {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    t = phase("check l2_distance", t)
+
+    # l2_topk at the closure step: 4096 points x L centroids, k = r
+    r = min(params.num_replica, L)
+    pts = torch.from_numpy(data[:4096].astype(np.float32)).to(dev)
+    gv, gi = fused_topk.l2_topk(pts, cents, r)
+    wv, wi = l2_topk_ref(pts, cents, r)
+    cn_max = (cents * cents).sum(-1).max()
+    row_tol = TOL * ((pts * pts).sum(-1) + cn_max) + 1e-6
+    require(bool(((gv - wv).abs() <= row_tol[:, None]).all()),
+            f"l2_topk values err {(gv - wv).abs().max().item()}")
+    n_diff, ties = near_tie_rows(gi, wi, pts, cents, row_tol)
+    require(ties, f"l2_topk ids differ beyond near-ties in {n_diff} rows")
+    print(f"l2_topk closure shape: {n_diff} of 4096 rows differ, all near-ties")
+    topk_err = float((gv - wv).abs().max())
+    k_ms = time_ms(lambda: fused_topk.l2_topk(pts, cents, r), 10)
+    p_ms = time_ms(lambda: l2_topk_ref(pts, cents, r), 3)
+    b_ms, b_by = l2_bound_ms(4096, L, D, 8 * 4096 * r, peaks)
+
+    # closure pairs: kernel vs plain through the build's own rule, on every
+    # stride-th chunk of the build's 4096-point chunks
+    thresh = (1.0 + params.closure_eps) ** 2
+    cents64 = cents.double()
+    cn64 = (cents64 * cents64).sum(-1)
+    stride = max(1, math.ceil(args.n / 4096 / 32))
+    n_pairs = n_flip = n_pts = 0
+    for s in range(0, args.n, 4096 * stride):
+        xc = torch.from_numpy(data[s:s + 4096].astype(np.float32)).to(dev)
+        sides = []
+        for fn in (fused_topk.l2_topk, l2_topk_ref):
+            dd, ii = fn(xc, cents, r)
+            lists, points = closure_pairs(dd.cpu().numpy(), ii.cpu().numpy(),
+                                          thresh, s)
+            sides.append(set((points * L + lists).tolist()))
+        n_pts += len(xc)
+        n_pairs += len(sides[0])
+        for code in sides[0] ^ sides[1]:
+            p, li = divmod(code, L)
+            xp = torch.from_numpy(data[p].astype(np.float64)).to(dev)
+            d64 = cn64 - 2.0 * (cents64 @ xp) + (xp * xp).sum()
+            srt = d64.sort().values
+            tol_p = TOL * ((xp * xp).sum() + cn64.max()).item()
+            at_thresh = abs(d64[li].item() - thresh * srt[0].item()) <= 2 * tol_p
+            at_rank_r = abs(d64[li].item() - srt[r - 1].item()) <= 2 * tol_p
+            require(at_thresh or at_rank_r,
+                    f"closure pair (point {p}, list {li}) flipped away from "
+                    f"the threshold and the rank-{r} boundary")
+            n_flip += 1
+    print(f"closure: {n_pts} points, {n_pairs} pairs, {n_flip} flipped pairs, "
+          f"all at the (1+eps)^2 threshold or the rank-{r} boundary")
+    report["closure_check"] = {"points": n_pts, "pairs": n_pairs,
+                               "flipped": n_flip}
+    t = phase("check closure", t)
+
+    # l2_topk at the ground truth: 512 queries x N points, k=10; ids of
+    # exact_topk on 1,024 queries against the plain version
+    xs = torch.from_numpy(data).to(dev)
+    n_diff_gt = 0
+    for s in range(0, min(1024, args.queries), 512):
+        gv2, gi2 = fused_topk.l2_topk(qt[s:s + 512], xs, K)
+        wv2, wi2 = l2_topk_ref(qt[s:s + 512], xs, K)
+        q_tol = TOL * ((qt[s:s + 512] ** 2).sum(-1) + (xs * xs).sum(-1).max()) + 1e-6
+        require(bool(((gv2 - wv2).abs() <= q_tol[:, None]).all()),
+                "exact_topk values differ")
+        nd, ties = near_tie_rows(gi2, wi2, qt[s:s + 512], xs, q_tol)
+        require(ties, f"exact_topk ids differ beyond near-ties in {nd} rows")
+        n_diff_gt += nd
+        topk_err = max(topk_err, float((gv2 - wv2).abs().max()))
+    print(f"exact_topk: {n_diff_gt} of 1024 rows differ, all near-ties")
+    gt_ms = time_ms(lambda: fused_topk.l2_topk(qt[:512], xs, K), 5)
+    gt_plain_ms = time_ms(lambda: l2_topk_ref(qt[:512], xs, K), 2)
+    gt_bound, _ = l2_bound_ms(512, args.n, D, 8 * 512 * K, peaks)
+    kernels.append({
+        "name": "l2_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
+        "replaces": "src/repro/kernels/fused_topk.py:64",
+        "launches": sum(c["l2_topk"] for c in launches.values()),
+        "max_abs_err": topk_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"4096x{L}x{D} k={r} (closure step)",
+        "gt_shape": f"512x{args.n}x{D} k={K}", "gt_ms": gt_ms,
+        "gt_plain_ms": gt_plain_ms, "gt_bound_ms": gt_bound,
+        "checked": "values within 1e-5*(|q|^2+|x|^2); ids equal up to near-ties"})
+    print(f"l2_topk 4096x{L}x{D} k={r}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms,"
+          f" bound {b_ms:.4f} ms; 512x{args.n} k={K}: kernel {gt_ms:.4f} ms, "
+          f"plain {gt_plain_ms:.4f} ms, bound {gt_bound:.4f} ms")
+    t = phase("check exact_topk", t)
+
+    # batched_topk (coalesced scans) against the per-query oracle: random
+    # rows (ids equal up to near-ties: the card and the CPU sum in other
+    # orders), then integer-valued rows with exact ties (bit-exact)
+    rng = np.random.default_rng(0)
+    for b in (1, 5, 8, 9, 33, 200):
+        qb_ = rng.standard_normal((b, 32)).astype(np.float32)
+        xb_ = rng.standard_normal((3000, 32)).astype(np.float32)
+        vk, ik = batched_topk(qb_, xb_, K, device=dev)
+        vo, io = scan_topk_oracle(qb_, xb_, K)
+        require(np.allclose(vk, vo, rtol=1e-5, atol=1e-5), f"batched_topk vals, batch {b}")
+        for row in np.flatnonzero((ik != io).any(1)):
+            exact = [np.sort(((xb_[ids].astype(np.float64) - qb_[row]) ** 2).sum(-1))
+                     for ids in (ik[row], io[row])]
+            require(np.allclose(exact[0], exact[1], rtol=1e-5, atol=0),
+                    f"batched_topk ids differ beyond a near-tie, batch {b}")
+    qi_ = rng.integers(-8, 8, (9, 32)).astype(np.float32)
+    xi_ = rng.integers(-8, 8, (500, 32)).astype(np.float32)
+    xi_ = np.concatenate([xi_, xi_[:200]])
+    vk, ik = batched_topk(qi_, xi_, 50, device=dev)
+    vo, io = scan_topk_oracle(qi_, xi_, 50)
+    require(np.array_equal(ik, io) and np.array_equal(vk, vo),
+            "batched_topk not bit-exact on integer inputs with ties")
+    t = phase("check batched_topk", t)
+
+    report["kernels"] = kernels
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1, default=str))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
+library, ``build/lib<name>-<hash>.so`` beside this file (``.gitignore``
+lists ``build/``); the hash covers the source and every header, so an
+edited kernel is rebuilt.  Libraries are loaded with ``ctypes`` on first
+CUDA use; nothing is compiled at import time.  :func:`build_all` starts one
+``nvcc`` per source, all together, so a cold start pays for the slowest
+file only.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("l2_distance", "fused_topk")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build repro_torch's kernels")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> str:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)        # atomic: another process never loads half
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every stale source, one ``nvcc`` each, all at once.
+
+    Returns ``{name: compiler log}`` for the sources it built (``-Xptxas
+    -v`` puts each kernel's registers and shared memory in the log).
+    """
+    jobs = {n: _start(n) for n in SOURCES}
+    return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

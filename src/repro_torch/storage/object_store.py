@@ -1,0 +1,30 @@
+"""In-process object store: the "remote storage" truth source (paper Fig 1).
+
+Objects are immutable (key -> payload) with an explicit *billable size* in
+bytes, which is what an I/O simulator charges for.  The cluster index keeps
+one object per posting list (``("list", i)`` -> (ids, vectors); size =
+len * (D*itemsize + 8)).
+
+The port's own copy of what the cluster-index slice needs from
+``repro.storage.object_store``; the reference's unlink/linger protocol for
+compaction and the graph index's sector rounding come with those slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Hashable
+
+
+class ObjectStore:
+    def __init__(self) -> None:
+        self._data: dict[Hashable, Any] = {}
+        self._size: dict[Hashable, int] = {}
+
+    def put(self, key: Hashable, payload: Any, nbytes: int) -> None:
+        self._data[key] = payload
+        self._size[key] = int(nbytes)
+
+    def get(self, key: Hashable) -> Any:
+        return self._data[key]
+
+    def nbytes(self, key: Hashable) -> int:
+        return self._size[key]

@@ -1,0 +1,202 @@
+"""The port's kernel entry points on the CPU against the JAX package's.
+
+Replays ``tests/test_kernels.py``'s distance and fused top-k sweeps: the
+same numpy inputs go through ``repro_torch.kernels.ops`` (CPU tensors, so
+the plain PyTorch versions) and through ``repro.kernels.ops`` with
+``interpret=True`` and ``repro.kernels.ref``.  Tolerances are the
+reference's own: f32 rtol 1e-5/atol 1e-2, bf16 rtol 2e-2, int8 exact;
+top-k values rtol 1e-4/atol 1e-3 with ids checked through distances.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import distance, fused_topk, ops  # noqa: E402
+from repro_torch.kernels.ref import BIG, l2_distance_ref  # noqa: E402
+
+
+def _mk(q, n, d, dtype, seed=0):
+    """(numpy for JAX, torch CPU tensors) with test_kernels.py's draws."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int8":
+        qs = rng.integers(-127, 128, size=(q, d)).astype(np.int8)
+        xs = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+        return (qs, xs), (torch.from_numpy(qs), torch.from_numpy(xs))
+    if dtype == "bfloat16":
+        qs = rng.normal(size=(q, d)).astype(jnp.bfloat16)
+        xs = rng.normal(size=(n, d)).astype(jnp.bfloat16)
+        return (qs, xs), (torch.from_numpy(qs.astype(np.float32)).bfloat16(),
+                          torch.from_numpy(xs.astype(np.float32)).bfloat16())
+    qs = rng.normal(size=(q, d)).astype(np.float32)
+    xs = rng.normal(size=(n, d)).astype(np.float32)
+    return (qs, xs), (torch.from_numpy(qs), torch.from_numpy(xs))
+
+
+def _close(got, want, dtype):
+    if dtype == "int8":
+        np.testing.assert_array_equal(got, want)
+    else:
+        rtol = 2e-2 if dtype == "bfloat16" else 1e-5
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-2)
+
+
+# ------------------------------------------------------------- distance --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("q,n,d", [
+    (4, 16, 8),          # tiny, everything padded
+    (128, 256, 256),     # exact tile multiples
+    (100, 300, 96),      # deep-analog dims, ragged tiles
+    (7, 513, 960),       # gist-analog dims, ragged everywhere
+])
+def test_l2_distance_matches_jax(dtype, q, n, d):
+    (qj, xj), (qt, xt) = _mk(q, n, d, dtype)
+    got = ops.l2_distance(qt, xt)
+    assert got.shape == (q, n) and got.dtype == torch.float32
+    got = got.numpy()
+    _close(got, np.asarray(jops.l2_distance(jnp.asarray(qj), jnp.asarray(xj),
+                                            interpret=True)), dtype)
+    _close(got, np.asarray(jref.l2_distance_ref(jnp.asarray(qj),
+                                                jnp.asarray(xj))), dtype)
+
+
+@pytest.mark.parametrize("blocks", [(32, 32, 32), (64, 128, 64)])
+def test_l2_distance_block_kwargs_do_not_change_results(blocks):
+    bq, bn, bd = blocks
+    (qj, xj), (qt, xt) = _mk(50, 130, 100, "float32")
+    got = ops.l2_distance(qt, xt, block_q=bq, block_n=bn, block_d=bd)
+    assert torch.equal(got, ops.l2_distance(qt, xt))
+    want = jops.l2_distance(jnp.asarray(qj), jnp.asarray(xj), interpret=True,
+                            block_q=bq, block_n=bn, block_d=bd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-3)
+
+
+# ----------------------------------------------------------- fused topk --
+
+@pytest.mark.parametrize("q,n,d,k", [
+    (4, 64, 32, 5),
+    (128, 1024, 96, 10),
+    (33, 700, 960, 10),
+    (1, 2048, 128, 20),
+])
+def test_l2_topk_matches_jax(q, n, d, k):
+    (qj, xj), (qt, xt) = _mk(q, n, d, "float32")
+    vals, ids = ops.l2_topk(qt, xt, k)
+    assert vals.shape == (q, k) and ids.shape == (q, k)
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    jvals, _ = jops.l2_topk(jnp.asarray(qj), jnp.asarray(xj), k,
+                            interpret=True)
+    rvals, _ = jref.l2_topk_ref(jnp.asarray(qj), jnp.asarray(xj), k)
+    for want in (jvals, rvals):
+        np.testing.assert_allclose(vals.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-3)
+    # ids may differ only on exact distance ties; check via distances
+    d_by_id = np.take_along_axis(
+        np.asarray(jref.l2_distance_ref(jnp.asarray(qj), jnp.asarray(xj))),
+        ids.numpy().astype(np.int64), axis=1)
+    np.testing.assert_allclose(d_by_id, np.asarray(rvals),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_l2_topk_ids_unique_and_sorted():
+    _, (qt, xt) = _mk(16, 512, 64, "float32", seed=3)
+    vals, ids = ops.l2_topk(qt, xt, 10)
+    vals, ids = vals.numpy(), ids.numpy()
+    for r in range(16):
+        assert len(np.unique(ids[r])) == 10
+        assert (np.diff(vals[r]) >= -1e-6).all()
+
+
+def test_l2_topk_block_sweep():
+    (qj, xj), (qt, xt) = _mk(40, 333, 100, "float32", seed=4)
+    rvals, _ = jref.l2_topk_ref(jnp.asarray(qj), jnp.asarray(xj), 10)
+    for bq, bn in [(16, 64), (64, 128), (128, 512)]:
+        vals, _ = ops.l2_topk(qt, xt, 10, block_q=bq, block_n=bn)
+        np.testing.assert_allclose(vals.numpy(), np.asarray(rvals),
+                                   rtol=1e-4, atol=1e-3)
+
+
+def test_l2_topk_duplicate_rows_take_lower_ids_first():
+    x = np.ones((6, 16), np.float32)
+    q = np.ones((2, 16), np.float32)
+    _, ids = ops.l2_topk(torch.from_numpy(q), torch.from_numpy(x), 4)
+    _, jids = jops.l2_topk(jnp.asarray(q), jnp.asarray(x), 4, interpret=True)
+    assert ids.tolist() == [[0, 1, 2, 3]] * 2
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
+def test_l2_topk_k_exceeds_n_tail_matches_pallas():
+    (qj, xj), (qt, xt) = _mk(3, 5, 8, "float32", seed=5)
+    vals, ids = ops.l2_topk(qt, xt, 10)
+    jvals, jids = jops.l2_topk(jnp.asarray(qj), jnp.asarray(xj), 10,
+                               interpret=True)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    assert (ids[:, 5:] == -1).all()
+    assert (vals[:, 5:] == torch.tensor(BIG, dtype=torch.float32)).all()
+    np.testing.assert_array_equal(vals.numpy()[:, 5:], np.asarray(jvals)[:, 5:])
+    np.testing.assert_allclose(vals.numpy()[:, :5], np.asarray(jvals)[:, :5],
+                               rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------------------------ dispatch --
+
+def test_l2_topk_k_bounds_raise():
+    _, (qt, xt) = _mk(2, 8, 4, "float32")
+    for k in (0, fused_topk.K_MAX + 1):
+        with pytest.raises(ValueError):
+            ops.l2_topk(qt, xt, k)
+
+
+def test_ops_raise_for_tensors_neither_cuda_nor_cpu():
+    q = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError):
+        ops.l2_distance(q, q)
+    with pytest.raises(ValueError):
+        ops.l2_topk(q, q, 1)
+    with pytest.raises(TypeError):
+        ops.l2_distance(torch.zeros(2, 4), torch.zeros(2, 4), tile=8)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    # on a CPU tensor only ops routes to the plain version; the CUDA
+    # wrappers themselves launch or raise, and never count a launch
+    _, (qt, xt) = _mk(2, 8, 4, "float32")
+    before = (distance.l2_distance.launches, fused_topk.l2_topk.launches)
+    with pytest.raises(ValueError):
+        distance.l2_distance(qt, xt)
+    with pytest.raises(ValueError):
+        fused_topk.l2_topk(qt, xt, 2)
+    ops.l2_distance(qt, xt)
+    ops.l2_topk(qt, xt, 2)
+    assert (distance.l2_distance.launches,
+            fused_topk.l2_topk.launches) == before
+
+
+def test_plain_int8_distance_is_exact():
+    rng = np.random.default_rng(1)
+    qs = rng.integers(-127, 128, size=(3, 200)).astype(np.int8)
+    xs = rng.integers(-127, 128, size=(50, 200)).astype(np.int8)
+    got = l2_distance_ref(torch.from_numpy(qs), torch.from_numpy(xs))
+    want = ((qs.astype(np.int64)[:, None, :]
+             - xs.astype(np.int64)[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("Q,N,sms,want_s", [
+    (4096, 214_000, 132, 4),      # closure step: 128 query blocks
+    (512, 1_000_000, 132, 33),    # ground truth: 16 query blocks
+    (8, 100, 132, 2),             # batched_topk: capped by the row tiles
+    (100_000, 50, 132, 1),        # many query blocks: no split
+    (4, 0, 132, 1),               # no rows
+])
+def test_split_count_fills_one_wave_and_covers_every_row(Q, N, sms, want_s):
+    s, span = fused_topk.split_count(Q, N, sms)
+    assert s == want_s
+    assert span % fused_topk.BLOCK_N == 0 and s <= fused_topk.MAX_SPLIT
+    assert s * span >= N and (s - 1) * span < max(N, 1)
