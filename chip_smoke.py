@@ -1,36 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path once on the card, and check it.
+"""Drive the PyTorch/H100 port's main paths once on the card, and check them.
 
-The path is the SPANN cluster index on the device, at the size of the
-standard 1M ANN sets: 1,000,000 deep-analog vectors (DEEP10M's shape, 96-d
-float32) and 10,000 queries.
+Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
 
-1. build both CUDA kernels from this checkout's sources (one nvcc each, all
-   started together);
-2. build the index: host BKT (numpy), then closure replication through the
-   fused ``l2_topk`` kernel; move ``device_arrays`` to the card;
-3. ground truth with ``exact_topk`` (``l2_topk``), k=10;
-4. ``device_search_batch`` at nprobe 16 and 64 in batches of 512 (the
-   centroid probe runs ``l2_distance``): recall@10 and queries/s;
-5. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gave it, and time kernel, plain version and the
-   PyTorch library call where there is one.
+* the SPANN cluster index on the device, at the size of the standard 1M
+  ANN sets: 1,000,000 vectors and 10,000 queries;
+* the DiskANN graph index at 200,000 vectors and 2,000 queries (cut from
+  1M: the build's RobustPrune is host numpy, as in the reference).
+
+1. build the three CUDA kernels from this checkout's sources (one nvcc
+   each, all started together);
+2. cluster path: host BKT (numpy), closure replication through the fused
+   ``l2_topk`` kernel, ``device_arrays`` on the card; ground truth with
+   ``exact_topk`` (``l2_topk``), k=10; ``device_search_batch`` at nprobe 16
+   and 64 in batches of 512 (the centroid probe runs ``l2_distance``):
+   recall@10 and queries/s;
+3. graph path: ``GraphIndex.build`` (R=24, L_build=48, one pass, 48 PQ
+   subquantizers: the greedy search and PQ training on the card, the prune
+   on the host); ground truth with ``exact_topk``; ``GraphIndex.search`` at
+   beamwidth 8 and search_len 40 and 128 (every round's PQ distances run
+   ``adc_lookup``): recall@10, queries/s, round trips, ADC rows;
+4. hold each kernel against its plain PyTorch version on the card at the
+   shapes the main paths gave it, and time kernel, plain version and the
+   PyTorch library call where there is one;
+5. the calibration harness (``measure_table``) on the card.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons in step 5 are not counted.  Prints one
-``{"kernels": [...]}`` line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed check exits
-nonzero before that line; so does a machine without CUDA, or a directory
-without the rest of the repository.
+after it; the comparisons in step 4 and the calibration are not counted.
+Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+exits nonzero before that line; so does a machine without CUDA, or a
+directory without the rest of the repository.
 
-    python3 chip_smoke.py [--n 1000000] [--queries 10000] [--out PATH]
+    python3 chip_smoke.py [--n 1000000] [--queries 10000]
+                          [--graph-n 200000] [--graph-queries 2000] [--out PATH]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -42,11 +51,9 @@ BATCH = 512
 K = 10
 NPROBES = (16, 64)
 TOL = 1e-5   # |kernel - plain| <= TOL * (|q|^2 + |x|^2): f32 cancellation bound
-
-# (FP32 FLOP/s outside the tensor cores, memory bytes/s) of the SXM parts
-# from NVIDIA's data sheets, by torch.cuda.get_device_name(); the rates
-# assume the 700 W power limit, which nvidia-smi's line reports beside them.
-PEAKS = (("H100 80GB HBM3", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+SEARCH_LENS = (40, 128)
+BEAMWIDTH = 8
+ADC_RTOL, ADC_ATOL = 1e-5, 1e-4   # the reference's (tests/test_kernels.py)
 
 
 def require(ok: bool, what: str) -> None:
@@ -74,11 +81,20 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
-    raise SystemExit(f"chip_smoke: no data-sheet peak for {name!r}")
+def _kernels() -> dict:
+    from repro_torch.kernels import distance, fused_topk, pq_adc
+    return {"l2_distance": distance.l2_distance, "l2_topk": fused_topk.l2_topk,
+            "adc_lookup": pq_adc.adc_lookup}
+
+
+def reset() -> None:
+    """Zero every kernel's launch count."""
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in _kernels().items()}
 
 
 def l2_bound_ms(Q: int, N: int, D: int, out_bytes: int, peaks) -> tuple[float, str]:
@@ -116,6 +132,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--graph-n", type=int, default=200_000)
+    ap.add_argument("--graph-queries", type=int, default=2_000)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the full report as JSON here")
     args = ap.parse_args(argv)
@@ -131,6 +149,7 @@ def main(argv=None) -> int:
     from repro_torch.core.types import ClusterIndexParams, recall_at_k
     from repro_torch.data.synth import DEEP_ANALOG, make_dataset, scaled
     from repro_torch.exec import batched_topk, scan_topk_oracle
+    from repro_torch.hw import card_peaks, smi_line
     from repro_torch.kernels import _build, distance, fused_topk
     from repro_torch.kernels.ref import (full_f32_matmul, l2_distance_ref,
                                          l2_topk_ref)
@@ -138,13 +157,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = smi_line(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
           flush=True)
-    report: dict = {"card": smi, "n": args.n, "queries": args.queries}
+    report: dict = {"card": smi, "n": args.n, "queries": args.queries,
+                    "graph_n": args.graph_n,
+                    "graph_queries": args.graph_queries}
 
     # ---- 1. kernels, built from this checkout --------------------------
     t = time.perf_counter()
@@ -155,17 +173,9 @@ def main(argv=None) -> int:
     report["kernel_build_s"] = time.perf_counter() - t
     t = phase("build kernels", t)
 
-    # ---- 2. data and index ---------------------------------------------
+    # ---- 2. cluster path: data, index, ground truth, search -----------
     data, queries = make_dataset(scaled(DEEP_ANALOG, args.n, args.queries))
     t = phase("make data", t)
-
-    def reset():
-        distance.l2_distance.launches = 0
-        fused_topk.l2_topk.launches = 0
-
-    def counts():
-        return {"l2_distance": distance.l2_distance.launches,
-                "l2_topk": fused_topk.l2_topk.launches}
 
     launches = {}
     params = ClusterIndexParams(kmeans_iters=4, seed=0)
@@ -275,7 +285,10 @@ def main(argv=None) -> int:
     require(overlap >= 0.99, "card search disagrees with the CPU plain path")
     t = phase("card vs CPU search", t)
 
-    # ---- 5. kernels against their plain versions, main-path shapes ----
+    # ---- 3. graph path ---------------------------------------------------
+    gindex, gqueries, t = graph_path(args, dev, report, launches, t)
+
+    # ---- 4. kernels against their plain versions, main-path shapes ----
     kernels = []
     cents = dv["centroids"]
     del dv["list_vecs"]
@@ -430,6 +443,13 @@ def main(argv=None) -> int:
             "batched_topk not bit-exact on integer inputs with ties")
     t = phase("check batched_topk", t)
 
+    kernels.append(adc_check(gindex, gqueries, dev, peaks, launches, report))
+    t = phase("check adc_lookup", t)
+
+    # ---- 5. calibration harness ----------------------------------------
+    calibration(dev, report, args.out)
+    t = phase("calibration (measure_table)", t)
+
     report["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -439,6 +459,268 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _timed(fn, spent: dict, key: str):
+    """``fn``, adding its wall time to ``spent[key]`` on every call."""
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent[key] += time.perf_counter() - t0
+    return timed
+
+
+def graph_path(args, dev, report, launches, t):
+    """Build the graph index on the card, take its ground truth and search
+    it at each search_len; returns (index, queries, phase clock)."""
+    from repro_torch.convert import graph_index_from_reference
+    from repro_torch.core import graph_index as gi
+    from repro_torch.core import pq as pqmod
+    from repro_torch.core.flat import exact_topk
+    from repro_torch.core.graph_index import GraphIndex
+    from repro_torch.core.types import (GraphIndexParams, SearchParams,
+                                        recall_at_k)
+    from repro_torch.data.synth import DEEP_ANALOG, make_dataset, scaled
+
+    n, nq = args.graph_n, args.graph_queries
+    data, queries = make_dataset(scaled(DEEP_ANALOG, n, nq))
+    t = phase("graph: make data", t)
+    params = GraphIndexParams(R=24, L_build=48, build_passes=1, pq_dims=48,
+                              seed=0)
+    # where the build's time goes: each piece's wall time, summed over its
+    # calls (the greedy search ends in a copy to the host, so it is synced)
+    parts = {"greedy_search_card": (gi, "_greedy_search_build"),
+             "robust_prune_host": (gi, "_robust_prune"),
+             "pq_train_card": (pqmod, "train_pq"),
+             "pq_encode_host": (pqmod.ProductQuantizer, "encode")}
+    spent = dict.fromkeys(parts, 0.0)
+    originals = {key: getattr(*where) for key, where in parts.items()}
+    for key, (owner, attr) in parts.items():
+        setattr(owner, attr, _timed(originals[key], spent, key))
+    reset()
+    try:
+        index = GraphIndex.build(data, params, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for key, (owner, attr) in parts.items():
+            setattr(owner, attr, originals[key])
+    launches["graph_build"] = counts()
+    build_s = time.perf_counter() - t
+    spent["rest_host"] = build_s - sum(spent.values())
+    g = report["graph"] = {"params": str(params), "build_s": build_s,
+                           "build_parts_s": spent,
+                           "node_nbytes": index.meta.node_nbytes,
+                           "search": {}}
+    print("graph build parts (s): " + json.dumps(spent))
+    t = phase("graph: index build (greedy search and PQ training on the "
+              "card, prune on the host)", t)
+    adj = index.device_arrays()["adjacency"]
+    deg = (adj >= 0).sum(1)
+    # one batch of the build's greedy search under the profiler (the final
+    # graph, 256 points): how busy the card is in that launch-heavy loop
+    data_t = torch.from_numpy(data[:, :]).to(dev)
+    adj_t = torch.from_numpy(adj).to(dev)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        originals["greedy_search_card"](data_t, adj_t, data_t[:256],
+                                        index.meta.medoid, params.L_build)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    g["greedy_search_profile"] = {"wall_us": wall_us, "device_busy_us": busy_us,
+                                  "kernels": sum(e.count for e in kern)}
+    print(f"profile of one greedy-search batch of 256: wall {wall_us:.0f} us, "
+          f"device busy {busy_us:.0f} us, {sum(e.count for e in kern)} "
+          f"kernels")
+    del data_t, adj_t
+    t = phase("graph: profile one greedy-search batch", t)
+    require(deg.max() <= params.R and not (adj == np.arange(n)[:, None]).any(),
+            "graph degree above R or a self loop")
+    g["mean_degree"] = float(deg.mean())
+    print(f"graph: {n} nodes, mean degree {deg.mean():.2f}, node block "
+          f"{index.meta.node_nbytes} bytes, codes {tuple(index.codes_dev.shape)} "
+          f"{index.codes_dev.dtype} on {index.codes_dev.device}")
+
+    reset()
+    gt, _ = exact_topk(data, queries, K, device=dev)
+    launches["graph_ground_truth"] = counts()
+    require(launches["graph_ground_truth"]["l2_topk"] == math.ceil(nq / 512),
+            f"graph exact_topk launched {launches['graph_ground_truth']}")
+    t = phase("graph: ground truth (exact_topk)", t)
+
+    index.search(queries[0], SearchParams(k=K, search_len=SEARCH_LENS[0],
+                                          beamwidth=BEAMWIDTH))   # warm-up
+    recs = []
+    for sl in SEARCH_LENS:
+        sp = SearchParams(k=K, search_len=sl, beamwidth=BEAMWIDTH)
+        adc_s = {"adc": 0.0}      # ids to the card, lookup, distances back
+        index._adc = _timed(index._adc, adc_s, "adc")
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [index.search(q, sp) for q in queries]
+        dt = time.perf_counter() - t0
+        c = launches[f"graph_search_L{sl}"] = counts()
+        del index._adc
+        ids = np.stack([r.ids for r in res])
+        rec = float(np.mean([recall_at_k(ids[i], gt[i]) for i in range(nq)]))
+        rts = sum(r.metrics.roundtrips for r in res)
+        rows = sum(r.metrics.pq_dist_comps for r in res)
+        # one lookup for the medoid, then one per round with new neighbours
+        require(rts <= c["adc_lookup"] <= nq + rts,
+                f"search_len {sl}: {c['adc_lookup']} adc_lookup launches for "
+                f"{rts} round trips of {nq} queries")
+        require(((ids >= 0) & (ids < n)).all(), "graph search ids out of range")
+        require(all(len(set(r)) == K for r in ids),
+                "duplicate ids in a graph result row")
+        recs.append(rec)
+        g["search"][sl] = {"recall@10": rec, "qps": nq / dt, "seconds": dt,
+                           "roundtrips_per_query": rts / nq,
+                           "adc_rows_per_query": rows / nq,
+                           "adc_launches": c["adc_lookup"],
+                           "adc_share": adc_s["adc"] / dt}
+        print(f"graph search_len={sl} W={BEAMWIDTH}: recall@10 {rec:.4f}, "
+              f"{nq / dt:.1f} queries/s ({dt:.3f} s), {rts / nq:.2f} round "
+              f"trips and {rows / nq:.1f} ADC rows per query, "
+              f"{c['adc_lookup']} adc_lookup launches, "
+              f"{adc_s['adc'] / dt:.3f} of the time in the ADC calls")
+        t = phase(f"graph: search search_len={sl}", t)
+    require(recs[-1] >= recs[0] and recs[-1] >= 0.5, f"graph recall {recs}")
+
+    # the card's search against the plain path on the CPU, same index
+    cpu_index = graph_index_from_reference(index, device="cpu")
+    sp = SearchParams(k=K, search_len=SEARCH_LENS[0], beamwidth=BEAMWIDTH)
+    over, same = [], 0
+    for q in queries[:64]:
+        a, b = index.search(q, sp).ids, cpu_index.search(q, sp).ids
+        over.append(len(np.intersect1d(a, b)) / K)
+        same += int(np.array_equal(a, b))
+    g["card_vs_cpu"] = {"rows_identical": same, "overlap": float(np.mean(over))}
+    print(f"graph card vs CPU plain path, 64 queries at search_len "
+          f"{SEARCH_LENS[0]}: {same} rows identical, mean overlap "
+          f"{np.mean(over):.4f}")
+    require(np.mean(over) >= 0.99, "graph search on the card disagrees with "
+            "the CPU plain path")
+    t = phase("graph: card vs CPU search", t)
+    return index, queries, t
+
+
+def adc_check(index, queries, dev, peaks, launches, report) -> dict:
+    """``adc_lookup`` against its plain version at a real search round's
+    codes, at the whole code array, and at the GIST shape (m = 120, the
+    dynamic shared-memory path); times kernel, plain version and
+    ``embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.types import SearchParams
+    from repro_torch.kernels import pq_adc
+    from repro_torch.kernels.ref import adc_lookup_ref
+
+    # record the lookups of one query's search; keep its largest round
+    pq = index.meta.pq
+    seen = []
+    pq.adc_lookup_dev = lambda c, tb: (seen.append((c, tb)),
+                                       type(pq).adc_lookup_dev(pq, c, tb))[1]
+    try:
+        index.search(queries[0], SearchParams(k=K, search_len=SEARCH_LENS[0],
+                                              beamwidth=BEAMWIDTH))
+    finally:
+        del pq.adc_lookup_dev
+    round_codes, table = max(seen, key=lambda ct: len(ct[0]))
+    rng = np.random.default_rng(1)
+    n_all = index.codes_dev.shape[0]
+    gist_codes = torch.from_numpy(
+        rng.integers(0, 256, (n_all, 120), dtype=np.uint8)).to(dev)
+    gist_table = torch.from_numpy(
+        rng.random((120, 256), dtype=np.float32)).to(dev)
+    cases = (("search round", round_codes, table, 500, 500),
+             ("all codes", index.codes_dev, table, 50, 10),
+             ("gist m=120", gist_codes, gist_table, 50, 10))
+    shapes, err = [], 0.0
+    for label, codes, tab, reps, plain_reps in cases:
+        N, m = codes.shape
+        got = pq_adc.adc_lookup(codes, tab)
+        want = adc_lookup_ref(codes, tab)
+        diff = (got - want).abs()
+        require(bool((diff <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
+                f"adc_lookup {label} {N}x{m}: max abs err {diff.max().item()}")
+        require(torch.equal(pq_adc.adc_lookup(codes.int(), tab), got),
+                f"adc_lookup {label}: int32 codes differ from uint8")
+        err = max(err, float(diff.max()))
+        offs = codes.long() + 256 * torch.arange(m, device=dev)[None, :]
+        flat = tab.reshape(-1, 1)
+        lib = F.embedding_bag(offs, flat, mode="sum")[:, 0]
+        require(bool(((lib - want).abs() <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
+                f"embedding_bag disagrees with the plain version ({label})")
+        lib_ms = time_ms(lambda: F.embedding_bag(offs, flat, mode="sum"), reps)
+        k_ms = time_ms(lambda: pq_adc.adc_lookup(codes, tab), reps)
+        p_ms = time_ms(lambda: adc_lookup_ref(codes, tab), plain_reps)
+        b_ms = (N * m + 4 * N + 4 * m * 256) / peaks[1] * 1e3
+        # a loop of launches runs at the wrapper's host rate when the kernel
+        # is shorter than that; the profiler gives the kernel's own time
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                pq_adc.adc_lookup(codes, tab)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if "adc_kernel" in e.key) / 20 / 1e3
+        shapes.append({"shape": f"{N}x{m} ({label})", "ms": k_ms,
+                       "device_ms": dev_ms, "plain_ms": p_ms,
+                       "library_ms": lib_ms, "bound_ms": b_ms,
+                       "max_abs_err": float(diff.max())})
+        print(f"adc_lookup {N}x{m} ({label}): kernel {k_ms:.4f} ms a call "
+              f"in a loop, {dev_ms:.4f} ms on the card (profiler), plain "
+              f"{p_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms (bytes), max abs err {float(diff.max()):.3g}")
+    report["adc_shapes"] = shapes
+    first = shapes[0]
+    return {
+        "name": "adc_lookup", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pq_adc.cu",
+        "replaces": "src/repro/kernels/pq_adc.py:41",
+        "launches": sum(c["adc_lookup"] for c in launches.values()),
+        "max_abs_err": err, "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": "bytes",
+        "library_ms": first["library_ms"],
+        "library": "torch.nn.functional.embedding_bag(mode='sum') over "
+                   "codes + 256*j into the flattened table",
+        "shape": first["shape"], "shapes": shapes,
+        "checked": f"rtol {ADC_RTOL} atol {ADC_ATOL} against the plain "
+                   f"version; int32 codes equal uint8"}
+
+
+def calibration(dev, report, out) -> None:
+    """``measure_table`` on the card: every unit cost positive and every
+    dist point under the FP32 roofline."""
+    from repro_torch.exec import measure_table
+
+    reset()
+    table = measure_table(device=dev)
+    c = counts()
+    n_dist = sum(e.op == "dist" for e in table.entries)
+    rl = table.meta["rooflines"]
+    require(all(e.unit_s > 0 for e in table.entries), "a unit_s <= 0")
+    require(len(rl) == n_dist and all(r["roofline_frac"] < 1.0 for r in rl),
+            "a calibration point above the roofline")
+    summary = table.describe()
+    report["calibration"] = {
+        "summary": summary, "launches": c, "meta": table.meta,
+        "entries": [e.to_dict() for e in table.entries]}
+    print(f"calibration: {json.dumps(summary)}, launches {c}, "
+          f"max roofline frac {max(r['roofline_frac'] for r in rl):.4f}")
+    for e in table.entries:
+        print(f"  {e.op} dim={e.dim} pq_m={e.pq_m} batch={e.batch}: "
+              f"{e.us_per_call:.1f} us/call, unit_s {e.unit_s:.3e}")
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        table.save(str(out.with_name(out.stem + ".calibration.json")))
 
 
 if __name__ == "__main__":

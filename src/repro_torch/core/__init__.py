@@ -1,2 +1,2 @@
-"""Index structures of the port: distances, exact search, k-means and the
-SPANN cluster index."""
+"""Index structures of the port: distances, exact search, k-means, product
+quantization, the SPANN cluster index and the DiskANN graph index."""

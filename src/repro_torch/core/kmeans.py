@@ -16,7 +16,7 @@ search has two implementations:
 The port's own copy of the reference's numpy host part (``kmeans_np``,
 ``_enforce_capacity``, ``BKTree``, ``hierarchical_partition``): the same
 seed gives the same tree in both packages.  Batched Lloyd for PQ codebooks
-(``kmeans_batched``) comes with the graph slice.
+(``kmeans_batched``) runs in torch on the tensors' device.
 """
 from __future__ import annotations
 
@@ -24,8 +24,10 @@ import dataclasses
 import heapq
 
 import numpy as np
+import torch
 
 from repro_torch.core.distances import np_sq_l2
+from repro_torch.kernels.ref import full_f32_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +95,60 @@ def kmeans_np(
         np.add.at(sums, assign, x)
         centroids = (sums / np.maximum(counts, 1)[:, None]).astype(np.float32)
     return centroids, assign
+
+
+# ---------------------------------------------------------------------------
+# batched Lloyd in torch (PQ codebooks: m independent same-shape subproblems)
+# ---------------------------------------------------------------------------
+
+def kmeans_batched(
+    x: torch.Tensor, k: int, iters: int = 10, *,
+    init_idx=None, generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched Lloyd.  x: (M, N, D) -> (centroids (M, k, D) f32, assign (M, N)).
+
+    All M subproblems run in lockstep on ``x``'s device — this is the PQ
+    codebook trainer (M = number of subquantizers, k = 256).  Each step is
+    the reference's (``repro.core.kmeans.kmeans_batched``): one batched
+    product in full f32 (TF32 off), ``argmin`` (first index on ties, as
+    ``jnp.argmin``), per-cluster sums and counts as a one-hot product, and
+    an empty cluster keeps its centroid.  ``assign`` is the last step's
+    assignment (made against the centroids before that step's update).
+
+    The reference draws its init rows with ``jax.random.choice``, which
+    torch cannot reproduce: ``init_idx`` (M, k) gives them explicitly;
+    otherwise each subproblem takes the first k of a ``torch.randperm``
+    drawn from ``generator`` (on the CPU, so a seed draws the same rows on
+    any device).
+    """
+    m, n, d = x.shape
+    k = min(k, n)
+    if init_idx is None:
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        init_idx = torch.stack([torch.randperm(n, generator=g)[:k]
+                                for _ in range(m)])
+    if not isinstance(init_idx, torch.Tensor):
+        init_idx = torch.from_numpy(np.array(init_idx, dtype=np.int64))
+    init_idx = init_idx.long().to(x.device)
+    if tuple(init_idx.shape) != (m, k):
+        raise ValueError(f"init_idx has shape {tuple(init_idx.shape)}, "
+                         f"expected {(m, k)}")
+    x = x.float()
+    cc = torch.gather(x, 1, init_idx[:, :, None].expand(m, k, d))
+    xn = (x * x).sum(-1)[:, :, None]                      # (M, N, 1)
+    a = torch.zeros((m, n), dtype=torch.long, device=x.device)
+    for _ in range(iters):
+        cn = (cc * cc).sum(-1)[:, None, :]                # (M, 1, k)
+        with full_f32_matmul():
+            ip = torch.bmm(x, cc.transpose(1, 2))         # (M, N, k)
+        a = torch.argmin(xn + cn - 2.0 * ip, dim=2)
+        onehot = torch.zeros((m, n, k), dtype=x.dtype, device=x.device)
+        onehot.scatter_(2, a[:, :, None], 1.0)
+        with full_f32_matmul():
+            sums = torch.bmm(onehot.transpose(1, 2), x)   # (M, k, D)
+        counts = onehot.sum(1)[:, :, None]                # (M, k, 1)
+        cc = torch.where(counts > 0, sums / counts.clamp_min(1.0), cc)
+    return cc, a
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,7 @@ parameterised (Table 3), searched with per-query parameters (nprobe /
 search_len / beamwidth), and every query produces the instrumentation
 metrics of §5.1 (①–⑦).
 
-The port's own copy of ``repro.core.types`` (cluster-index slice: the
-graph index's parameters come with the graph slice).
+The port's own copy of ``repro.core.types``.
 """
 from __future__ import annotations
 
@@ -36,6 +35,27 @@ class ClusterIndexParams:
     kmeans_iters: int = 8
     branch: int = 8
     balance_penalty: float = 0.0
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphIndexParams:
+    """DiskANN-style graph index build parameters (paper §2.3.2, §3).
+
+    R:          max out-degree (graph density knob of Fig 17).
+    L_build:    candidate-set size used during construction.
+    alpha:      robust-prune slack (>1 keeps long-range edges).
+    pq_dims:    number of PQ subquantizers held in memory (Table 3 "PQ dim.";
+                paper default QD = max(dim/8, 48)).
+    sector_bytes: storage block size per node (4KB in the paper).
+    """
+
+    R: int = 64
+    L_build: int = 128
+    alpha: float = 1.2
+    pq_dims: int = 48
+    build_passes: int = 2
+    sector_bytes: int = 4096
     seed: int = 0
 
 

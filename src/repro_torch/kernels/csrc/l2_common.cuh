@@ -6,8 +6,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "cuda_common.cuh"
 
 #include <type_traits>
 
@@ -37,7 +37,3 @@ __device__ __forceinline__ void load_slice(A (*dst)[ROWS + 1], const T* __restri
 }
 
 }  // namespace repro
-
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

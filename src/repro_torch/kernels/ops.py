@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import fused_topk as _fused_topk
+from repro_torch.kernels import pq_adc as _pq_adc
 from repro_torch.kernels import ref as ref  # re-export the plain versions
 
 _BLOCK_KW = {"block_q", "block_n", "block_d"}
@@ -51,3 +52,11 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int = 10, **kw
     if _route("l2_topk", q, x, kw=kw) == "cuda":
         return _fused_topk.l2_topk(q, x, k)
     return ref.l2_topk_ref(q, x, k)
+
+
+def adc_lookup(codes: torch.Tensor, table: torch.Tensor, **kw) -> torch.Tensor:
+    """PQ asymmetric distances (N,) float32 of codes (N, m) uint8/int32 and
+    a table (m, 256)."""
+    if _route("adc_lookup", codes, table, kw=kw) == "cuda":
+        return _pq_adc.adc_lookup(codes, table)
+    return ref.adc_lookup_ref(codes, table)

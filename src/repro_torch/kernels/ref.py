@@ -60,6 +60,16 @@ def stable_topk_smallest(d: torch.Tensor, k: int
     return d.gather(-1, idx), idx
 
 
+def adc_lookup_ref(codes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """PQ asymmetric distance: codes (N, m) int, table (m, 256) -> (N,) f32.
+
+    ``out[n] = sum_j table[j, codes[n, j]]``, summed in float32.
+    """
+    m = table.shape[0]
+    ar = torch.arange(m, device=codes.device)
+    return table.float()[ar[None, :], codes.long()].sum(-1)
+
+
 def l2_topk_ref(q: torch.Tensor, x: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused distance + top-k: returns (dists (Q, k) f32, ids (Q, k) int32).

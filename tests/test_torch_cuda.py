@@ -10,8 +10,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, distance, fused_topk, ops  # noqa: E402
-from repro_torch.kernels.ref import l2_distance_ref, l2_topk_ref  # noqa: E402
+from repro_torch.kernels import _build, distance, fused_topk, ops, pq_adc  # noqa: E402
+from repro_torch.kernels.ref import (adc_lookup_ref, l2_distance_ref,  # noqa: E402
+                                     l2_topk_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +114,68 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
         ops.l2_distance(qs, xs.cpu())
     with pytest.raises(TypeError):
         distance.l2_distance(qs, xs.double())
+
+
+# ------------------------------------------------------------------ ADC --
+
+def _adc_inputs(n, m, dev, codes_dtype, integer_table=False, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, size=(n, m)).astype(codes_dtype)
+    if integer_table:
+        table = rng.integers(0, 1000, size=(m, 256)).astype(np.float32)
+    else:
+        table = rng.random((m, 256)).astype(np.float32)
+    return torch.from_numpy(codes).to(dev), torch.from_numpy(table).to(dev)
+
+
+@pytest.mark.parametrize("codes_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("n,m", [(10, 8), (1024, 48), (2000, 112), (3, 120),
+                                 (777, 7), (5000, 227), (1, 1), (0, 48)])
+def test_adc_lookup_kernel_matches_plain(dev, n, m, codes_dtype):
+    codes, table = _adc_inputs(n, m, dev, codes_dtype)
+    before = pq_adc.adc_lookup.launches
+    got = ops.adc_lookup(codes, table)
+    torch.cuda.synchronize()
+    assert pq_adc.adc_lookup.launches == before + (1 if n else 0)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, adc_lookup_ref(codes, table),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m", [(1024, 48), (3000, 120), (777, 7)])
+def test_adc_lookup_kernel_integer_table_exact(dev, n, m):
+    codes, table = _adc_inputs(n, m, dev, np.uint8, integer_table=True)
+    assert torch.equal(ops.adc_lookup(codes, table),
+                       adc_lookup_ref(codes, table))
+
+
+def test_adc_lookup_kernel_unaligned_rows(dev):
+    # contiguous codes that start 1 byte into their buffer: m % 4 == 0 but
+    # the 4-byte loads would be misaligned, so the kernel reads bytes
+    rng = np.random.default_rng(3)
+    for n, m in ((65, 4), (300, 48), (9, 6)):
+        flat = torch.from_numpy(
+            rng.integers(0, 256, 1 + n * m).astype(np.uint8)).to(dev)
+        codes = flat[1:].view(n, m)
+        assert codes.is_contiguous() and codes.data_ptr() % 4 == 1
+        table = torch.from_numpy(rng.random((m, 256)).astype(np.float32)).to(dev)
+        torch.testing.assert_close(pq_adc.adc_lookup(codes, table),
+                                   adc_lookup_ref(codes, table),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_adc_lookup_kernel_refuses_what_it_cannot_take(dev):
+    codes, table = _adc_inputs(16, 8, dev, np.uint8)
+    with pytest.raises(ValueError):
+        pq_adc.adc_lookup(codes.cpu(), table.cpu())
+    with pytest.raises(ValueError):
+        ops.adc_lookup(codes, table.cpu())
+    with pytest.raises(TypeError):
+        pq_adc.adc_lookup(codes.long(), table)
+    with pytest.raises(TypeError):
+        pq_adc.adc_lookup(codes, table.int())
+    with pytest.raises(ValueError):
+        pq_adc.adc_lookup(codes, table[:, :128])
+    big = torch.zeros((4, pq_adc.MAX_M + 1), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        pq_adc.adc_lookup(big, torch.zeros((pq_adc.MAX_M + 1, 256), device=dev))

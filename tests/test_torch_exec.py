@@ -1,14 +1,21 @@
-"""``repro_torch.exec.batched`` on the CPU (mirrors ``tests/test_exec.py``'s
-pad-to-tile section, and holds the port's batched ids to the JAX
-package's)."""
+"""``repro_torch.exec`` on the CPU: the batched scan (mirrors
+``tests/test_exec.py``'s pad-to-tile section, and holds the port's batched
+ids to the JAX package's), and the calibration table and harness (held to
+the reference's ``CalibrationTable`` on one set of entries)."""
+import json
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro.exec import batched as jbatched  # noqa: E402
-from repro_torch.exec import (QUERY_TILE, batched_topk,  # noqa: E402
-                              coalesce_scan, pad_amount, scan_topk_oracle)
+from repro.exec import table as jtable  # noqa: E402
+from repro_torch.exec import (CALIBRATE_COMMAND, QUERY_TILE,  # noqa: E402
+                              CalibEntry, CalibrationTable, batched_topk,
+                              coalesce_scan, load_table, measure_table,
+                              pad_amount, scan_topk_oracle)
+from repro_torch.exec import calibrate  # noqa: E402
 from repro_torch.kernels import fused_topk  # noqa: E402
 
 
@@ -97,3 +104,92 @@ def test_pad_amount_and_tiles():
     # the query tile is the CUDA kernel's query block
     assert QUERY_TILE == fused_topk.BLOCK_Q
     assert pad_amount(33, QUERY_TILE) == 31
+
+
+# ----------------------------------------------------- calibration table --
+
+_ROWS = [("dist", 32, 0, 100, "float32", 1e-6),
+         ("dist", 32, 0, 10000, "float32", 1e-8),
+         ("dist", 128, 0, 100, "float32", 4e-6),
+         ("adc", 0, 8, 1000, "uint8", 2e-8),
+         ("adc", 0, 8, 64000, "uint8", 5e-10),
+         ("adc", 0, 48, 1000, "uint8", 3e-8)]
+
+
+def _tables():
+    return (CalibrationTable([CalibEntry(*r) for r in _ROWS],
+                             meta={"backend": "test"}),
+            jtable.CalibrationTable([jtable.CalibEntry(*r) for r in _ROWS],
+                                    meta={"backend": "test"}))
+
+
+def test_table_roundtrip_matches_reference_file(tmp_path):
+    port, ref = _tables()
+    port.save(str(tmp_path / "port.json"))
+    ref.save(str(tmp_path / "ref.json"))
+    assert (tmp_path / "port.json").read_text() == \
+        (tmp_path / "ref.json").read_text()
+    back = CalibrationTable.load(str(tmp_path / "ref.json"))
+    assert [e.to_dict() for e in back.entries] == \
+        [e.to_dict() for e in port.entries]
+    assert back.meta["backend"] == "test"
+    assert back.describe() == ref.describe()
+
+
+@pytest.mark.parametrize("dim", [16, 32, 64, 128, 500])
+@pytest.mark.parametrize("batch", [1, 100, 1000, 3333.3, 10000, 1e9])
+def test_table_lookups_match_reference(dim, batch):
+    port, ref = _tables()
+    assert port.dist_unit_s(dim, batch) == ref.dist_unit_s(dim, batch)
+    assert port.dist_flops_per_s(dim, batch) == ref.dist_flops_per_s(dim, batch)
+    for pq_m in (8, 16, 48, 120):
+        assert port.adc_unit_s(pq_m, batch) == ref.adc_unit_s(pq_m, batch)
+
+
+@pytest.mark.parametrize("work", [(4096, 2048, 64, 8, None, None),
+                                  (500, 0, 32, 0, 50000, None),
+                                  (0, 777, 96, 48, None, 1e6),
+                                  (1, 1, 128, 16, 1, 1)])
+def test_plan_seconds_matches_reference(work):
+    port, ref = _tables()
+    d_dist, d_pq, dim, pq_m, db, ab = work
+    assert port.plan_seconds(d_dist, d_pq, dim, pq_m, dist_batch=db,
+                             adc_batch=ab) == \
+        ref.plan_seconds(d_dist, d_pq, dim, pq_m, dist_batch=db, adc_batch=ab)
+
+
+def test_table_requires_dist_entries_and_load_needs_a_path():
+    with pytest.raises(ValueError):
+        CalibrationTable([CalibEntry("adc", 0, 8, 100, "uint8", 1e-8)])
+    with pytest.raises(FileNotFoundError, match="repro_torch.exec.calibrate"):
+        load_table()
+    assert "python -m repro_torch.exec.calibrate" in CALIBRATE_COMMAND
+
+
+def test_measure_table_quick_on_cpu_gives_a_loadable_table(tmp_path):
+    t = measure_table(quick=True, iters=1, device="cpu")
+    assert {e.op for e in t.entries} == {"dist", "adc"}
+    assert all(e.unit_s > 0 for e in t.entries)
+    assert len(t.entries) == (len(calibrate.DIMS_QUICK)
+                              * len(calibrate.DIST_POINTS_QUICK)
+                              + len(calibrate.PQ_MS_QUICK)
+                              * len(calibrate.ADC_POINTS_QUICK))
+    # no card: no roofline to hold the points to, and the meta says so
+    assert t.meta["backend"] == "cpu" and t.meta["rooflines"] == []
+    assert t.meta["roofline_check"].startswith("skipped")
+    assert t.plan_seconds(1000, 500, 32, 8) > 0
+    p = tmp_path / "t.json"
+    t.save(str(p))
+    assert json.loads(p.read_text())["version"] == 1
+    assert load_table(str(p)).dist_unit_s(32) > 0
+    # a port-measured table is a valid input for the reference's pricing
+    assert jtable.CalibrationTable.load(str(p)).plan_seconds(100, 10, 32, 8) > 0
+
+
+def test_calibrate_cli_runs_on_the_card_only(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the CLI would time the card")
+    out = tmp_path / "cal.json"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate.main(["--out", str(out), "--quick"])
+    assert not out.exists()

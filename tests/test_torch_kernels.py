@@ -1,11 +1,12 @@
 """The port's kernel entry points on the CPU against the JAX package's.
 
-Replays ``tests/test_kernels.py``'s distance and fused top-k sweeps: the
-same numpy inputs go through ``repro_torch.kernels.ops`` (CPU tensors, so
-the plain PyTorch versions) and through ``repro.kernels.ops`` with
+Replays ``tests/test_kernels.py``'s distance, fused top-k and ADC sweeps:
+the same numpy inputs go through ``repro_torch.kernels.ops`` (CPU tensors,
+so the plain PyTorch versions) and through ``repro.kernels.ops`` with
 ``interpret=True`` and ``repro.kernels.ref``.  Tolerances are the
 reference's own: f32 rtol 1e-5/atol 1e-2, bf16 rtol 2e-2, int8 exact;
-top-k values rtol 1e-4/atol 1e-3 with ids checked through distances.
+top-k values rtol 1e-4/atol 1e-3 with ids checked through distances; ADC
+rtol 1e-5/atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import distance, fused_topk, ops  # noqa: E402
+from repro_torch.kernels import distance, fused_topk, ops, pq_adc  # noqa: E402
 from repro_torch.kernels.ref import BIG, l2_distance_ref  # noqa: E402
 
 
@@ -144,6 +145,43 @@ def test_l2_topk_k_exceeds_n_tail_matches_pallas():
                                rtol=1e-4, atol=1e-3)
 
 
+# ------------------------------------------------------------------ ADC --
+
+@pytest.mark.parametrize("codes_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("n,m", [(10, 8), (1024, 48), (2000, 112), (3, 120)])
+def test_adc_lookup_matches_jax(n, m, codes_dtype):
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 256, size=(n, m)).astype(codes_dtype)
+    table = rng.random((m, 256)).astype(np.float32)
+    got = ops.adc_lookup(torch.from_numpy(codes), torch.from_numpy(table))
+    assert got.shape == (n,) and got.dtype == torch.float32
+    for want in (jops.adc_lookup(jnp.asarray(codes), jnp.asarray(table),
+                                 interpret=True),
+                 jref.adc_lookup_ref(jnp.asarray(codes), jnp.asarray(table))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_adc_lookup_block_n_ignored_and_empty():
+    rng = np.random.default_rng(1)
+    codes = torch.from_numpy(rng.integers(0, 256, (300, 16)).astype(np.uint8))
+    table = torch.from_numpy(rng.random((16, 256)).astype(np.float32))
+    assert torch.equal(ops.adc_lookup(codes, table, block_n=64),
+                       ops.adc_lookup(codes, table))
+    out = ops.adc_lookup(codes[:0], table)
+    assert out.shape == (0,) and out.dtype == torch.float32
+
+
+def test_adc_lookup_integer_table_is_exact():
+    rng = np.random.default_rng(2)
+    codes = rng.integers(0, 256, (500, 48)).astype(np.uint8)
+    table = rng.integers(0, 1000, (48, 256)).astype(np.float32)
+    got = ops.adc_lookup(torch.from_numpy(codes), torch.from_numpy(table))
+    want = table[np.arange(48)[None, :], codes.astype(np.int64)].astype(
+        np.int64).sum(1)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+
+
 # ------------------------------------------------------------ dispatch --
 
 def test_l2_topk_k_bounds_raise():
@@ -161,21 +199,36 @@ def test_ops_raise_for_tensors_neither_cuda_nor_cpu():
         ops.l2_topk(q, q, 1)
     with pytest.raises(TypeError):
         ops.l2_distance(torch.zeros(2, 4), torch.zeros(2, 4), tile=8)
+    with pytest.raises(ValueError):
+        ops.adc_lookup(torch.zeros((2, 4), dtype=torch.uint8, device="meta"),
+                       torch.zeros((4, 256), device="meta"))
+    with pytest.raises(ValueError):   # mixed devices
+        ops.adc_lookup(torch.zeros((2, 4), dtype=torch.uint8),
+                       torch.zeros((4, 256), device="meta"))
+    with pytest.raises(TypeError):
+        ops.adc_lookup(torch.zeros((2, 4), dtype=torch.uint8),
+                       torch.zeros((4, 256)), block_m=8)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     # on a CPU tensor only ops routes to the plain version; the CUDA
     # wrappers themselves launch or raise, and never count a launch
     _, (qt, xt) = _mk(2, 8, 4, "float32")
-    before = (distance.l2_distance.launches, fused_topk.l2_topk.launches)
+    codes = torch.zeros((3, 4), dtype=torch.uint8)
+    table = torch.zeros((4, 256))
+    before = (distance.l2_distance.launches, fused_topk.l2_topk.launches,
+              pq_adc.adc_lookup.launches)
     with pytest.raises(ValueError):
         distance.l2_distance(qt, xt)
     with pytest.raises(ValueError):
         fused_topk.l2_topk(qt, xt, 2)
+    with pytest.raises(ValueError):
+        pq_adc.adc_lookup(codes, table)
     ops.l2_distance(qt, xt)
     ops.l2_topk(qt, xt, 2)
-    assert (distance.l2_distance.launches,
-            fused_topk.l2_topk.launches) == before
+    ops.adc_lookup(codes, table)
+    assert (distance.l2_distance.launches, fused_topk.l2_topk.launches,
+            pq_adc.adc_lookup.launches) == before
 
 
 def test_plain_int8_distance_is_exact():

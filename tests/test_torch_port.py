@@ -13,8 +13,11 @@ torch = pytest.importorskip("torch")
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.core.cluster_index import ClusterIndex  # noqa: E402
 from repro_torch.core.flat import exact_topk  # noqa: E402
-from repro_torch.core.types import ClusterIndexParams  # noqa: E402
-from repro_torch.exec import batched_topk  # noqa: E402
+from repro_torch.core.graph_index import GraphIndex  # noqa: E402
+from repro_torch.core.pq import train_pq  # noqa: E402
+from repro_torch.core.types import (ClusterIndexParams,  # noqa: E402
+                                    GraphIndexParams)
+from repro_torch.exec import batched_topk, measure_table  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,6 +59,12 @@ def test_default_device_raises_without_cuda():
         batched_topk(x[:2], x, 3)
     with pytest.raises(RuntimeError):
         ClusterIndex.build(x, ClusterIndexParams(seed=0))
+    with pytest.raises(RuntimeError):
+        GraphIndex.build(x, GraphIndexParams(R=4, L_build=8, pq_dims=4))
+    with pytest.raises(RuntimeError):
+        train_pq(x, 4)
+    with pytest.raises(RuntimeError):
+        measure_table(quick=True)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
