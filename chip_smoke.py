@@ -22,7 +22,12 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    ``adc_lookup``): recall@10, queries/s, round trips, ADC rows;
 4. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths gave it, and time kernel, plain version and the
-   PyTorch library call where there is one;
+   PyTorch library call where there is one (for ``l2_topk`` two calls,
+   ``cdist`` then ``topk``, as context); ``l2_topk``'s share of the FP32
+   bound with the variant and split it ran; both ``adc_lookup`` paths
+   (staged table, direct reads) on the same codes, which must give the same
+   bits, with each kernel's device time from the profiler and a CUDA
+   graph's time a call, at the main paths' shapes and over a sweep of N;
 5. the calibration harness (``measure_table``) on the card.
 
 Launch counts are zeroed just before each main-path phase and read just
@@ -54,6 +59,7 @@ TOL = 1e-5   # |kernel - plain| <= TOL * (|q|^2 + |x|^2): f32 cancellation bound
 SEARCH_LENS = (40, 128)
 BEAMWIDTH = 8
 ADC_RTOL, ADC_ATOL = 1e-5, 1e-4   # the reference's (tests/test_kernels.py)
+ADC_SWEEP_N = (256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
 def require(ok: bool, what: str) -> None:
@@ -81,6 +87,47 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, match, calls: int = 50) -> tuple[float | None, int]:
+    """Mean device time of one kernel whose name satisfies ``match``, over
+    ``calls`` calls of ``fn`` under ``torch.profiler``, and how many such
+    kernels it recorded.  The mean divides by the recorded count: the
+    profiler may drop records."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if match(e.key)]
+    n = sum(e.count for e in ev)
+    total_us = sum(e.self_device_time_total for e in ev)
+    return (total_us / n / 1e3 if n else None), n
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time a call of ``fn`` when ``reps`` calls replay as one CUDA
+    graph: no host launch cost, but the gaps between kernels stay, so for a
+    short kernel it is an upper bound of its own time."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del g
+    return ms
+
+
 def _kernels() -> dict:
     from repro_torch.kernels import distance, fused_topk, pq_adc
     return {"l2_distance": distance.l2_distance, "l2_topk": fused_topk.l2_topk,
@@ -104,6 +151,29 @@ def l2_bound_ms(Q: int, N: int, D: int, out_bytes: int, peaks) -> tuple[float, s
     nbytes = 4 * (Q + N) * D + out_bytes
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def topk_plan(Q: int, N: int, D: int, k: int) -> str:
+    """The ``l2_topk`` variant and row split the wrapper picks for a shape."""
+    from repro_torch.kernels import fused_topk
+    v, S, span = fused_topk.plan(Q, N, D, k, torch.cuda.current_device())
+    name = "wide" if v is fused_topk.WIDE else "narrow"
+    return f"{name} {v.block_q}x{v.block_n}, S={S} ranges of {span} rows"
+
+
+def two_call_topk_ms(q: torch.Tensor, x: torch.Tensor, k: int, reps: int) -> float:
+    """Time of the two-call yardstick for ``l2_topk``: ``torch.cdist``
+    squared, then ``torch.topk``, in full f32 (context: no single PyTorch
+    call fuses distance and top-k)."""
+    from repro_torch.kernels.ref import full_f32_matmul
+
+    def run():
+        d = torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist")
+        return torch.topk(d * d, k, dim=1, largest=False)
+    with full_f32_matmul():
+        ms = time_ms(run, reps)
+    torch.cuda.empty_cache()
+    return ms
 
 
 def norm_tol(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -348,7 +418,9 @@ def main(argv=None) -> int:
     topk_err = float((gv - wv).abs().max())
     k_ms = time_ms(lambda: fused_topk.l2_topk(pts, cents, r), 10)
     p_ms = time_ms(lambda: l2_topk_ref(pts, cents, r), 3)
+    lib_ms = two_call_topk_ms(pts, cents, r, 3)
     b_ms, b_by = l2_bound_ms(4096, L, D, 8 * 4096 * r, peaks)
+    plan = topk_plan(4096, L, D, r)
 
     # closure pairs: kernel vs plain through the build's own rule, on every
     # stride-th chunk of the build's 4096-point chunks
@@ -402,21 +474,31 @@ def main(argv=None) -> int:
     print(f"exact_topk: {n_diff_gt} of 1024 rows differ, all near-ties")
     gt_ms = time_ms(lambda: fused_topk.l2_topk(qt[:512], xs, K), 5)
     gt_plain_ms = time_ms(lambda: l2_topk_ref(qt[:512], xs, K), 2)
+    gt_lib_ms = two_call_topk_ms(qt[:512], xs, K, 2)
     gt_bound, _ = l2_bound_ms(512, args.n, D, 8 * 512 * K, peaks)
+    gt_plan = topk_plan(512, args.n, D, K)
     kernels.append({
         "name": "l2_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk.py:64",
         "launches": sum(c["l2_topk"] for c in launches.values()),
         "max_abs_err": topk_err, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"4096x{L}x{D} k={r} (closure step)",
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "library": "two calls, context only: torch.cdist(use_mm_for_euclid_dist)"
+                   " squared, then torch.topk, in full f32",
+        "shape": f"4096x{L}x{D} k={r} (closure step)", "bound_share": b_ms / k_ms,
+        "plan": plan,
         "gt_shape": f"512x{args.n}x{D} k={K}", "gt_ms": gt_ms,
         "gt_plain_ms": gt_plain_ms, "gt_bound_ms": gt_bound,
+        "gt_library_ms": gt_lib_ms, "gt_bound_share": gt_bound / gt_ms,
+        "gt_plan": gt_plan,
         "checked": "values within 1e-5*(|q|^2+|x|^2); ids equal up to near-ties"})
-    print(f"l2_topk 4096x{L}x{D} k={r}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms,"
-          f" bound {b_ms:.4f} ms; 512x{args.n} k={K}: kernel {gt_ms:.4f} ms, "
-          f"plain {gt_plain_ms:.4f} ms, bound {gt_bound:.4f} ms")
+    print(f"l2_topk 4096x{L}x{D} k={r} ({plan}): kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms (two calls), bound "
+          f"{b_ms:.4f} ms, {b_ms / k_ms:.3f} of the FP32 bound; 512x{args.n} "
+          f"k={K} ({gt_plan}): kernel {gt_ms:.4f} ms, plain {gt_plain_ms:.4f} ms, "
+          f"cdist+topk {gt_lib_ms:.4f} ms (two calls), bound {gt_bound:.4f} ms, "
+          f"{gt_bound / gt_ms:.3f} of the FP32 bound")
     t = phase("check exact_topk", t)
 
     # batched_topk (coalesced scans) against the per-query oracle: random
@@ -610,6 +692,30 @@ def graph_path(args, dev, report, launches, t):
     return index, queries, t
 
 
+def adc_paths(codes, tab, got, label) -> dict:
+    """Both ``adc_lookup`` paths on the same inputs: the same bits as
+    ``got`` (required), each kernel's device time and a CUDA graph's time
+    a call."""
+    from repro_torch.kernels import pq_adc
+    names = {"staged": lambda key: "adc_kernel" in key,
+             "direct": lambda key: "adc_direct_kernel" in key}
+    out = {}
+    for path in pq_adc.PATHS:
+        require(torch.equal(pq_adc.adc_lookup(codes, tab, path=path), got),
+                f"adc_lookup {label}: the {path} path's bits differ")
+        fn = lambda: pq_adc.adc_lookup(codes, tab, path=path)  # noqa: E731
+        dev_ms, n = kernel_device_ms(fn, names[path])
+        out[path] = {"device_ms": dev_ms, "recorded": n,
+                     "graph_ms": graph_ms(fn, 200)}
+    return out
+
+
+def adc_paths_text(r: dict) -> str:
+    dev = (f"{r['device_ms']:.6f} ms on the card ({r['recorded']} kernels "
+           f"recorded)" if r["device_ms"] else "not captured")
+    return f"{dev}, {r['graph_ms']:.6f} ms a call in a CUDA graph"
+
+
 def adc_check(index, queries, dev, peaks, launches, report) -> dict:
     """``adc_lookup`` against its plain version at a real search round's
     codes, at the whole code array, and at the GIST shape (m = 120, the
@@ -662,23 +768,31 @@ def adc_check(index, queries, dev, peaks, launches, report) -> dict:
         p_ms = time_ms(lambda: adc_lookup_ref(codes, tab), plain_reps)
         b_ms = (N * m + 4 * N + 4 * m * 256) / peaks[1] * 1e3
         # a loop of launches runs at the wrapper's host rate when the kernel
-        # is shorter than that; the profiler gives the kernel's own time
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                pq_adc.adc_lookup(codes, tab)
-            torch.cuda.synchronize()
-        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                     if "adc_kernel" in e.key) / 20 / 1e3
+        # is shorter than that; the profiler gives each path's kernel time,
+        # a CUDA graph of 200 calls the time a call without the host
+        paths = adc_paths(codes, tab, got, label)
+        auto = "direct" if N <= pq_adc.SMALL_N else "staged"
         shapes.append({"shape": f"{N}x{m} ({label})", "ms": k_ms,
-                       "device_ms": dev_ms, "plain_ms": p_ms,
+                       "path": auto, "device_ms": paths[auto]["device_ms"],
+                       "paths": paths, "plain_ms": p_ms,
                        "library_ms": lib_ms, "bound_ms": b_ms,
                        "max_abs_err": float(diff.max())})
         print(f"adc_lookup {N}x{m} ({label}): kernel {k_ms:.4f} ms a call "
-              f"in a loop, {dev_ms:.4f} ms on the card (profiler), plain "
-              f"{p_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
+              f"in a loop ({auto} path); "
+              + "; ".join(f"{p} {adc_paths_text(r)}" for p, r in paths.items())
+              + f"; plain {p_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
               f"{b_ms:.6f} ms (bytes), max abs err {float(diff.max()):.3g}")
+    # where the direct path stops paying: both paths on the first N rows of
+    # the graph's codes with the round's table
+    sweep = []
+    for N in ADC_SWEEP_N:
+        codes = index.codes_dev[:N]
+        paths = adc_paths(codes, table, pq_adc.adc_lookup(codes, table),
+                          f"{N} rows")
+        sweep.append({"n": N, "paths": paths})
+        print(f"adc_lookup sweep {N}x{codes.shape[1]}: "
+              + "; ".join(f"{p} {adc_paths_text(r)}" for p, r in paths.items()))
+    report["adc_sweep"] = sweep
     report["adc_shapes"] = shapes
     first = shapes[0]
     return {
@@ -692,8 +806,10 @@ def adc_check(index, queries, dev, peaks, launches, report) -> dict:
         "library": "torch.nn.functional.embedding_bag(mode='sum') over "
                    "codes + 256*j into the flattened table",
         "shape": first["shape"], "shapes": shapes,
+        "device_ms": first["device_ms"], "path": first["path"],
         "checked": f"rtol {ADC_RTOL} atol {ADC_ATOL} against the plain "
-                   f"version; int32 codes equal uint8"}
+                   f"version; int32 codes equal uint8; the staged and the "
+                   f"direct path give identical bits"}
 
 
 def calibration(dev, report, out) -> None:

@@ -25,12 +25,13 @@ from repro_torch.kernels import fused_topk, ops
 __all__ = ["QUERY_TILE", "CAND_TILE", "pad_amount", "batched_topk",
            "scan_topk_oracle", "coalesce_scan"]
 
-#: The CUDA kernel's own tiles (csrc/fused_topk.cu): one block owns 32
-#: queries and streams candidates 64 rows at a time, so a batch padded to
-#: 32 fills whole blocks.  (The reference's 8x128 were the TPU's f32
-#: sublane x lane tile.)
-QUERY_TILE = fused_topk.BLOCK_Q
-CAND_TILE = fused_topk.BLOCK_N
+#: The CUDA kernel's small-batch tiles (csrc/fused_topk.cu, the narrow
+#: variant): one block owns 32 queries and streams candidates 256 rows at a
+#: time, so a batch padded to 32 fills whole blocks; the wide variant's
+#: 128-query block, taken from 128 queries up, is a multiple of it.  (The
+#: reference's 8x128 were the TPU's f32 sublane x lane tile.)
+QUERY_TILE = fused_topk.NARROW.block_q
+CAND_TILE = fused_topk.NARROW.block_n
 
 
 def pad_amount(n: int, tile: int) -> int:

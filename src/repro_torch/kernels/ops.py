@@ -24,13 +24,13 @@ _BLOCK_KW = {"block_q", "block_n", "block_d"}
 
 
 def _route(name: str, *tensors: torch.Tensor, kw: dict) -> str:
-    unknown = set(kw) - _BLOCK_KW
-    if unknown:
-        raise TypeError(f"{name}() got unexpected keywords {sorted(unknown)}")
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if kw and not kw.keys() <= _BLOCK_KW:
+        raise TypeError(f"{name}() got unexpected keywords "
+                        f"{sorted(set(kw) - _BLOCK_KW)}")
+    # cheap attribute checks first: a graph search routes one call a round
+    if all(t.is_cuda for t in tensors):
         return "cuda"
-    if kinds == {"cpu"}:
+    if all(t.device.type == "cpu" for t in tensors):
         return "cpu"
     raise ValueError(f"{name} takes tensors all on CUDA or all on the CPU, "
                      f"got {[str(t.device) for t in tensors]}")

@@ -104,6 +104,99 @@ def test_l2_topk_kernel_duplicates_and_short_tail(dev):
     assert torch.all(vals[0, 5:] == torch.tensor(3.4e38))
 
 
+def _check_topk(qs, xs, k, vals, ids):
+    """Values within the f32 tolerance of the plain version; ids through
+    the plain distances (near-ties may pick either row)."""
+    rvals, rids = l2_topk_ref(qs, xs, k)
+    torch.testing.assert_close(vals, rvals, rtol=1e-4, atol=1e-3)
+    real = rids >= 0
+    assert torch.equal(ids < 0, ~real)
+    d_by_id = torch.gather(l2_distance_ref(qs, xs), 1, ids.clamp_min(0).long())
+    torch.testing.assert_close(d_by_id[real], rvals[real], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 128])
+@pytest.mark.parametrize("q", [31, 32, 33, 127, 128, 129])
+def test_l2_topk_kernel_at_tile_boundaries(dev, q, k):
+    # Q on both sides of the narrow (32) and wide (128) query blocks, k on
+    # both sides of the wide lists (32); 1000 rows are no whole row tile
+    qs, xs = _mk(q, 1000, 96, "float32", dev, seed=q + k)
+    vals, ids = ops.l2_topk(qs, xs, k)
+    _check_topk(qs, xs, k, vals, ids)
+    assert fused_topk.pick_variant(q, 96, k) is (
+        fused_topk.WIDE if q >= 128 and k <= 32 else fused_topk.NARROW)
+
+
+@pytest.mark.parametrize("d", [8, 16, 96, 960])
+@pytest.mark.parametrize("q", [40, 130])
+def test_l2_topk_kernel_depths_and_ragged_rows(dev, q, d):
+    # N = 1037 fills neither variant's row tile; D = 8 is half a depth
+    # slice, 960 is GIST's (narrow only)
+    qs, xs = _mk(q, 1037, d, "float32", dev, seed=d)
+    vals, ids = ops.l2_topk(qs, xs, 10)
+    _check_topk(qs, xs, 10, vals, ids)
+
+
+@pytest.mark.parametrize("d", [8, 96, 256])
+def test_l2_topk_kernel_variants_give_the_same_bits(dev, d):
+    # 300 queries run wide, 100 at a time narrow: both run the same FMA
+    # chain per (query, row) and the same norms, so random inputs give
+    # identical values and ids
+    qs, xs = _mk(300, 5000, d, "float32", dev, seed=7)
+    assert fused_topk.pick_variant(300, d, 16) is fused_topk.WIDE
+    assert fused_topk.pick_variant(100, d, 16) is fused_topk.NARROW
+    wv, wi = ops.l2_topk(qs, xs, 16)
+    parts = [ops.l2_topk(qs[s:s + 100], xs, 16) for s in (0, 100, 200)]
+    assert torch.equal(wv, torch.cat([p[0] for p in parts]))
+    assert torch.equal(wi, torch.cat([p[1] for p in parts]))
+
+
+@pytest.mark.parametrize("q,k,variant", [(160, 8, "WIDE"), (160, 32, "WIDE"),
+                                         (40, 8, "NARROW"), (160, 128, "NARROW")])
+def test_l2_topk_kernel_integer_inputs_bit_exact_per_variant(dev, q, k, variant):
+    # exact sums and exact ties (duplicate rows): each variant gives the
+    # plain version's values and ids, lower id first on ties
+    assert fused_topk.pick_variant(q, 24, k) is getattr(fused_topk, variant)
+    qs, xs = _mk(q, 3000, 24, "float32", dev, seed=4, integer=True)
+    xs = torch.cat([xs, xs[:1500]])
+    vals, ids = ops.l2_topk(qs, xs, k)
+    rvals, rids = l2_topk_ref(qs, xs, k)
+    assert torch.equal(ids, rids)
+    assert torch.equal(vals, rvals)
+
+
+@pytest.mark.parametrize("d", [1040, 2000])
+@pytest.mark.parametrize("q,k", [(40, 10), (130, 10), (40, 128)])
+def test_l2_topk_kernel_streams_queries_past_the_resident_depth(dev, q, d, k):
+    # past NARROW.max_d the queries come through the ring beside the rows;
+    # integer inputs keep every sum exact, so values and ids are the plain
+    # version's bit for bit
+    assert d > fused_topk.NARROW.max_d
+    assert fused_topk.pick_variant(q, d, k) is fused_topk.NARROW
+    qs, xs = _mk(q, 700, d, "float32", dev, seed=d + k, integer=True)
+    xs = torch.cat([xs, xs[:300]])
+    vals, ids = ops.l2_topk(qs, xs, k)
+    rvals, rids = l2_topk_ref(qs, xs, k)
+    assert torch.equal(ids, rids)
+    assert torch.equal(vals, rvals)
+
+
+@pytest.mark.parametrize("q,d,k", [(4096, 96, 8), (512, 96, 10), (256, 256, 32),
+                                   (8, 960, 10), (8, 960, 128), (40, 2000, 10)])
+def test_l2_topk_plan_follows_the_occupancy(dev, q, d, k):
+    # the split fills one wave of the blocks that the call's shared memory
+    # lets an SM hold: at least two at the main path's shapes and with
+    # streamed queries, one where the resident queries or lists take more
+    # than half of an SM's 228 KB
+    v, s, span = fused_topk.plan(q, 10 ** 6, d, k, torch.cuda.current_device())
+    per_sm = fused_topk._blocks_per_sm(fused_topk._lib(), v, d, k,
+                                       torch.cuda.current_device())
+    small = (q, d) in ((4096, 96), (512, 96), (40, 2000))
+    assert per_sm >= 2 if small else per_sm == 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (s, span) == fused_topk.split_count(q, 10 ** 6, sms, v, per_sm)
+
+
 def test_kernel_wrappers_reject_what_they_cannot_take(dev):
     qs, xs = _mk(4, 8, 16, "float32", dev)
     with pytest.raises(ValueError):
@@ -162,6 +255,54 @@ def test_adc_lookup_kernel_unaligned_rows(dev):
         torch.testing.assert_close(pq_adc.adc_lookup(codes, table),
                                    adc_lookup_ref(codes, table),
                                    rtol=1e-5, atol=1e-4)
+
+
+_ADC_GROWING_M = """
+import numpy as np, torch
+from repro_torch.kernels import pq_adc
+from repro_torch.kernels.ref import adc_lookup_ref
+rng = np.random.default_rng(0)
+for m in (48, 120, 227):
+    codes = torch.from_numpy(rng.integers(0, 256, (5000, m)).astype(np.uint8)).cuda()
+    table = torch.from_numpy(rng.random((m, 256)).astype(np.float32)).cuda()
+    for n in (5000, 138):      # the attribute is set once, then reused
+        got = pq_adc.adc_lookup(codes[:n], table, path="staged")
+        torch.testing.assert_close(got, adc_lookup_ref(codes[:n], table),
+                                   rtol=1e-5, atol=1e-4)
+torch.cuda.synchronize()
+print("ok")
+"""
+
+
+def test_adc_lookup_kernel_raises_shared_memory_as_m_grows(dev):
+    # in a fresh process, so no earlier test has set the attribute: the
+    # cached shared-memory size must grow from m = 48 to 120 to 227
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    out = subprocess.run([sys.executable, "-c", _ADC_GROWING_M], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("m", [48, 120, 7])
+@pytest.mark.parametrize("n_from_threshold", [-pq_adc.SMALL_N + 1, -1, 0, 1, 3000])
+def test_adc_lookup_paths_give_the_same_bits_around_the_threshold(
+        dev, n_from_threshold, m):
+    # N = 1, SMALL_N - 1, SMALL_N (the last direct), SMALL_N + 1 (the
+    # first staged) and beyond; m = 7 reads the codes byte by byte
+    n = pq_adc.SMALL_N + n_from_threshold
+    codes, table = _adc_inputs(n, m, dev, np.uint8, seed=n + m)
+    got = {p: pq_adc.adc_lookup(codes, table, path=p) for p in pq_adc.PATHS}
+    assert torch.equal(got["staged"], got["direct"])
+    assert torch.equal(pq_adc.adc_lookup(codes, table), got["staged"])
+    torch.testing.assert_close(got["direct"], adc_lookup_ref(codes, table),
+                               rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError):
+        pq_adc.adc_lookup(codes, table, path="shared")
 
 
 def test_adc_lookup_kernel_refuses_what_it_cannot_take(dev):

@@ -101,8 +101,11 @@ def test_pad_amount_and_tiles():
     assert pad_amount(1, 8) == 7
     assert pad_amount(9, 8) == 7
     assert pad_amount(120, 128) == 8
-    # the query tile is the CUDA kernel's query block
-    assert QUERY_TILE == fused_topk.BLOCK_Q
+    # the query tile is the CUDA kernel's small-batch query block, and the
+    # wide variant's block (taken from 128 queries up) is whole tiles
+    assert QUERY_TILE == fused_topk.NARROW.block_q
+    assert fused_topk.WIDE.block_q % QUERY_TILE == 0
+    assert fused_topk.pick_variant(QUERY_TILE, 96, 10) is fused_topk.NARROW
     assert pad_amount(33, QUERY_TILE) == 31
 
 

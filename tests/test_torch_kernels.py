@@ -241,15 +241,63 @@ def test_plain_int8_distance_is_exact():
     np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
 
 
-@pytest.mark.parametrize("Q,N,sms,want_s", [
-    (4096, 214_000, 132, 4),      # closure step: 128 query blocks
-    (512, 1_000_000, 132, 33),    # ground truth: 16 query blocks
-    (8, 100, 132, 2),             # batched_topk: capped by the row tiles
-    (100_000, 50, 132, 1),        # many query blocks: no split
-    (4, 0, 132, 1),               # no rows
+@pytest.mark.parametrize("Q,N,k,sms,want_s", [
+    # closure step, wide: 32 query blocks; 2 x 132 resident / 32 = 8
+    (4096, 214_000, 8, 132, 8),
+    # ground truth, wide: 4 query blocks; 264 / 4 = 66, capped at MAX_SPLIT
+    (512, 1_000_000, 10, 132, 64),
+    # batched_topk, narrow: 100 rows are one 256-row tile
+    (8, 100, 10, 132, 1),
+    # many query blocks: no split
+    (100_000, 50, 10, 132, 1),
+    # no rows
+    (4, 0, 10, 132, 1),
 ])
-def test_split_count_fills_one_wave_and_covers_every_row(Q, N, sms, want_s):
-    s, span = fused_topk.split_count(Q, N, sms)
+def test_split_count_fills_one_wave_and_covers_every_row(Q, N, k, sms, want_s):
+    v = fused_topk.pick_variant(Q, 96, k)
+    s, span = fused_topk.split_count(Q, N, sms, v)
     assert s == want_s
-    assert span % fused_topk.BLOCK_N == 0 and s <= fused_topk.MAX_SPLIT
+    assert span % v.block_n == 0 and s <= fused_topk.MAX_SPLIT
     assert s * span >= N and (s - 1) * span < max(N, 1)
+
+
+@pytest.mark.parametrize("Q,D,k,want", [
+    (128, 96, 8, "wide"),      # a full wide query block
+    (127, 96, 8, "narrow"),    # below it: 32-query blocks pad less
+    (4096, 96, 33, "narrow"),  # k above the wide lists
+    (4096, 256, 32, "wide"),   # the wide variant's largest D and k
+    (4096, 257, 8, "narrow"),  # D too large for resident wide queries
+    (8, 960, 128, "narrow"),   # a small batch at GIST's D and K_MAX
+    (4096, 2000, 8, "narrow"),  # past the resident depth: streamed queries
+])
+def test_pick_variant_by_q_d_and_k(Q, D, k, want):
+    v = fused_topk.pick_variant(Q, D, k)
+    assert v is {"wide": fused_topk.WIDE, "narrow": fused_topk.NARROW}[want]
+    # only the narrow variant takes a D past its resident depth
+    assert k <= v.k_max and (D <= v.max_d or v is fused_topk.NARROW)
+    # the wide block is whole narrow blocks, so a batch padded to the
+    # narrow tile never pads again for the wide one
+    assert fused_topk.WIDE.block_q % fused_topk.NARROW.block_q == 0
+
+
+def test_split_count_per_variant_at_small_and_large_q():
+    # narrow at Q = 127: 4 query blocks, 264 / 4 = 66 -> 64 ranges of
+    # 256-row tiles; wide at Q = 128: 1 query block -> 64 ranges
+    for Q, v in ((127, fused_topk.NARROW), (128, fused_topk.WIDE)):
+        s, span = fused_topk.split_count(Q, 1_000_000, 132, v)
+        assert (s, span % v.block_n) == (64, 0)
+        assert s * span >= 1_000_000 > (s - 1) * span
+
+
+@pytest.mark.parametrize("per_sm,want_s", [
+    (None, 33),   # the variant's 2 blocks an SM: 264 / 8 query blocks
+    (2, 33),
+    (1, 16),      # one block an SM (large resident queries): 132 / 8
+])
+def test_split_count_follows_the_blocks_an_sm_holds(per_sm, want_s):
+    # 256 queries at k = 33 run narrow: 8 query blocks over 3,907 row tiles
+    v = fused_topk.pick_variant(256, 96, 33)
+    assert v is fused_topk.NARROW
+    s, span = fused_topk.split_count(256, 1_000_000, 132, v, per_sm)
+    assert s == want_s and span % v.block_n == 0
+    assert s * span >= 1_000_000 > (s - 1) * span
