@@ -28,6 +28,9 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    (staged table, direct reads) on the same codes, which must give the same
    bits, with each kernel's device time from the profiler and a CUDA
    graph's time a call, at the main paths' shapes and over a sweep of N;
+   ``l2_distance``'s plan at the probe, its share of the bound, and the
+   wide and simple instantiations held to the same bits (``torch.mm`` of
+   the same operands timed as context);
 5. the calibration harness (``measure_table``) on the card.
 
 Launch counts are zeroed just before each main-path phase and read just
@@ -381,13 +384,26 @@ def main(argv=None) -> int:
     ci = (cents * scale).round().clamp(-127, 127).to(torch.int8)
     require(torch.equal(distance.l2_distance(qi, ci), l2_distance_ref(qi, ci)),
             "l2_distance int8 not exact")
+    # the plan at the probe, and the simple instantiation on the same
+    # inputs: the same f32 bits (the A/B holds both to the earlier kernel's)
+    dplan = distance.plan(BATCH, L, D, torch.cuda.current_device())
+    require(dplan.variant is distance.WIDE,
+            f"the probe planned {dplan.variant.name}, not the wide kernel")
+    require(torch.equal(distance.l2_distance(qp, cents, variant="simple"), got),
+            "l2_distance: the wide and simple instantiations' bits differ at the probe")
     del got, want, err32, errbf
     with full_f32_matmul():   # the yardstick in full f32, as the kernels
         lib_ms = time_ms(lambda: torch.cdist(
             qp, cents, compute_mode="use_mm_for_euclid_dist"), 10)
+        sgemm_ms = time_ms(lambda: torch.mm(qp, cents.T), 20)
     k_ms = time_ms(lambda: distance.l2_distance(qp, cents), 20)
+    simple_ms = time_ms(lambda: distance.l2_distance(qp, cents, variant="simple"), 20)
     p_ms = time_ms(lambda: l2_distance_ref(qp, cents), 10)
+    dev_ms, _ = kernel_device_ms(lambda: distance.l2_distance(qp, cents),
+                                 lambda key: "l2_distance_wide_kernel" in key)
     b_ms, b_by = l2_bound_ms(BATCH, L, D, 4 * BATCH * L, peaks)
+    plan_txt = (f"{dplan.variant.name} {dplan.variant.block_q}x"
+                f"{dplan.variant.block_n}, {dplan.ranges} ranges of {dplan.span} rows")
     kernels.append({
         "name": "l2_distance", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l2_distance.cu",
@@ -397,10 +413,19 @@ def main(argv=None) -> int:
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
         "library": "torch.cdist(use_mm_for_euclid_dist): root of the same matrix",
-        "shape": f"{BATCH}x{L}x{D} f32 (centroid probe)",
-        "checked": "f32 and bf16 within 1e-5*(|q|^2+|x|^2); int8 exact"})
-    print(f"l2_distance {BATCH}x{L}x{D}: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, cdist {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        "shape": f"{BATCH}x{L}x{D} f32 (centroid probe)", "plan": plan_txt,
+        "bound_share": b_ms / k_ms, "simple_ms": simple_ms,
+        "device_ms": dev_ms, "sgemm_ms": sgemm_ms,
+        "sgemm": "context only: the product alone, not the same function "
+                 "(torch.mm(q, x.T) in full f32)",
+        "checked": "f32 and bf16 within 1e-5*(|q|^2+|x|^2); int8 exact; "
+                   "wide and simple give identical f32 bits"})
+    print(f"l2_distance {BATCH}x{L}x{D} ({plan_txt}): kernel {k_ms:.4f} ms, "
+          f"{b_ms / k_ms:.3f} of the bound; device {dev_ms} ms (profiler); simple "
+          f"{simple_ms:.4f} ms; plain {p_ms:.4f} ms, cdist "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); sgemm {sgemm_ms:.4f} "
+          f"ms (context only: the product alone, not the same function); "
+          f"wide and simple bits identical")
     t = phase("check l2_distance", t)
 
     # l2_topk at the closure step: 4096 points x L centroids, k = r

@@ -46,9 +46,13 @@
 //   range's top-k.
 // * launch attributes: the dynamic shared memory (up to 227 KB) is raised
 //   once per device and variant, only when a call needs more than was set.
-#include "cuda_common.cuh"
+#include "l2_common.cuh"
 
 namespace {
+
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -85,15 +89,6 @@ size_t smem_bytes(int D, int k) {
   return sizeof(float) * (qsz * T::BQ + STAGES * (KC * T::XS + T::BN) + T::BQ
                           + 2 * static_cast<size_t>(T::BQ) * k);
 }
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ int gcd(int a, int b) {
   while (b) { const int t = a % b; a = b; b = t; }

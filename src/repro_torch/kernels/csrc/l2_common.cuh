@@ -1,11 +1,11 @@
-// Shared pieces of the port's squared-L2 kernels (sm_90a).
+// Shared pieces of the port's squared-L2 kernels (sm_90a): the simple
+// l2_distance body's slice staging, and the 4-byte cp.async copies through
+// which the wide l2_distance kernel and fused_topk.cu stream their rows.
 //
 // Both kernels compute d = |q|^2 + |x|^2 - 2 q.x over row-major operands on
 // the CUDA cores in exact float32 FMA (or exact int32 for int8), never TF32:
 // the reference's tolerances (rtol 1e-5 f32) are below what TF32 keeps.
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "cuda_common.cuh"
 
@@ -13,13 +13,11 @@
 
 namespace repro {
 
-// Accumulator type per input type: bf16 is widened to f32 on load (its
-// products are exact in f32); int8 accumulates exactly in int32.
+// Accumulator type per input type: int8 accumulates exactly in int32.
 template <typename T> struct AccOf { using type = float; };
 template <> struct AccOf<int8_t> { using type = int; };
 
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ int widen(int8_t v) { return static_cast<int>(v); }
 
 // Load a (ROWS x BK) slice of a row-major (n_rows, D) operand into shared
@@ -35,5 +33,16 @@ __device__ __forceinline__ void load_slice(A (*dst)[ROWS + 1], const T* __restri
     dst[c][r] = (gr < n_rows && gk < D) ? widen(src[static_cast<size_t>(gr) * D + gk]) : A(0);
   }
 }
+
+// One 4-byte asynchronous copy global -> shared; with !ok the destination is
+// zero-filled and `src` is not read.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 }  // namespace repro

@@ -62,6 +62,54 @@ def test_l2_distance_kernel_matches_plain(dev, dtype, q, n, d):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
 
 
+_DIST_SHAPES = [(4, 16, 8), (128, 256, 256), (100, 300, 96), (7, 513, 960),
+                (1, 1, 1), (65, 130, 17)]
+# Q on both sides of the wide query block (128) and two of them; N on both
+# sides of a row tile; D from 1 past one and two depth slices to the wide
+# variant's largest resident depth
+_DIST_EDGES = [(q, n, d) for q in (127, 128, 129, 255) for n in (127, 128, 129)
+               for d in (1, 16, 17, 96, 256)]
+
+
+@pytest.mark.parametrize("variant", ["wide", "simple"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,n,d", [s for s in _DIST_SHAPES if s[2] <= 256]
+                         + _DIST_EDGES)
+def test_l2_distance_kernel_variants_match_plain(dev, variant, dtype, q, n, d):
+    qs, xs = _mk(q, n, d, dtype, dev, seed=q + n + d)
+    before = distance.l2_distance.launches
+    got = distance.l2_distance(qs, xs, variant=variant)
+    torch.cuda.synchronize()
+    assert distance.l2_distance.launches == before + 1
+    assert got.shape == (q, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, l2_distance_ref(qs, xs), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,n,d", [(128, 1000, 96), (300, 5000, 96),
+                                   (512, 20000, 96), (129, 777, 17),
+                                   (256, 4099, 256), (200, 3001, 1)])
+def test_l2_distance_kernel_variants_give_the_same_bits(dev, dtype, q, n, d):
+    # one fmaf chain a product over d in order, the same sequential norms
+    # and the same combine: random inputs give identical f32 bits
+    qs, xs = _mk(q, n, d, dtype, dev, seed=11)
+    assert distance.pick_variant(q, d, qs.dtype) is distance.WIDE
+    wide = distance.l2_distance(qs, xs)
+    assert torch.equal(wide, distance.l2_distance(qs, xs, variant="simple"))
+    assert torch.equal(wide, distance.l2_distance(qs, xs, variant="wide"))
+
+
+@pytest.mark.parametrize("variant", ["wide", "simple"])
+@pytest.mark.parametrize("q,n,d", [(130, 1037, 96), (512, 3000, 256),
+                                   (128, 129, 17), (255, 700, 1)])
+def test_l2_distance_kernel_integer_inputs_bit_exact(dev, variant, q, n, d):
+    # integer-valued f32: every product, norm and sum is exact, so the
+    # kernel equals the plain version bit for bit
+    qs, xs = _mk(q, n, d, "float32", dev, seed=5, integer=True)
+    assert torch.equal(distance.l2_distance(qs, xs, variant=variant),
+                       l2_distance_ref(qs, xs))
+
+
 @pytest.mark.parametrize("q,n,d,k", [(4, 64, 32, 5), (128, 1024, 96, 10),
                                      (33, 700, 960, 10), (1, 2048, 128, 20),
                                      (512, 20000, 96, 10), (3, 5000, 16, 128),

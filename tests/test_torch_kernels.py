@@ -301,3 +301,55 @@ def test_split_count_follows_the_blocks_an_sm_holds(per_sm, want_s):
     s, span = fused_topk.split_count(256, 1_000_000, 132, v, per_sm)
     assert s == want_s and span % v.block_n == 0
     assert s * span >= 1_000_000 > (s - 1) * span
+
+
+# ------------------------------------------------- l2_distance variants --
+
+@pytest.mark.parametrize("Q,D,dtype,want", [
+    (512, 96, torch.float32, "wide"),       # the centroid probe
+    (128, 96, torch.float32, "wide"),       # one full wide query block
+    (127, 96, torch.float32, "simple"),     # below it: 64-query tiles pad less
+    (4096, 256, torch.bfloat16, "wide"),    # bf16 is widened; the largest resident D
+    (4096, 1, torch.float32, "wide"),       # the smallest D
+    (4096, 257, torch.float32, "simple"),   # past the resident depth
+    (4096, 0, torch.float32, "simple"),     # no depth at all
+    (4096, 96, torch.int8, "simple"),       # int8 stays exact in int32
+])
+def test_l2_distance_pick_variant_by_q_d_and_dtype(Q, D, dtype, want):
+    v = distance.pick_variant(Q, D, dtype)
+    assert v is distance.VARIANTS[want]
+    assert distance.takes(v, D, dtype)
+
+
+@pytest.mark.parametrize("Q,N,sms,per_sm,want_s", [
+    (512, 214_790, 132, 2, 65),    # the probe: 4 query blocks, 66 ranges of 26 tiles cover N in 65
+    (512, 214_790, 132, 1, 33),    # one block an SM: 132 / 4 query blocks
+    (4096, 214_790, 132, 2, 8),    # 32 query blocks: 264 / 32
+    (128, 1000, 132, 2, 8),        # fewer tiles than the wave: a range a tile
+    (256, 129, 132, 2, 2),         # a ragged last tile
+    (100_000, 5000, 132, 2, 1),    # more query blocks than a wave holds
+])
+def test_l2_distance_ranges_cover_every_row_once(Q, N, sms, per_sm, want_s):
+    s, span = distance.split_count(Q, N, sms, per_sm)
+    assert s == want_s and span % distance.WIDE.block_n == 0
+    seen = np.zeros(N, dtype=np.int64)
+    for r in range(s):
+        lo, hi = r * span, min(N, (r + 1) * span)
+        assert hi > lo                      # no range is empty
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    q_blocks = -(-Q // distance.WIDE.block_q)
+    assert s == 1 or q_blocks * s <= per_sm * sms   # one wave at most
+
+
+def test_l2_distance_plan_forces_and_refuses_variants():
+    # the simple kernel's plan needs no card: one grid over all rows
+    assert distance.plan(512, 1000, 96, 0, variant="simple") == distance.Plan(
+        distance.SIMPLE, 1, 1000)
+    assert distance.plan(4, 1000, 960, 0) == distance.Plan(distance.SIMPLE, 1, 1000)
+    with pytest.raises(ValueError):      # past the wide variant's resident depth
+        distance.plan(512, 1000, 257, 0, variant="wide")
+    with pytest.raises(ValueError):      # int8 runs only the exact int32 body
+        distance.plan(512, 1000, 96, 0, torch.int8, variant="wide")
+    with pytest.raises(ValueError):
+        distance.plan(512, 1000, 96, 0, variant="tiled")

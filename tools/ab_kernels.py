@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's ``l2_topk`` and ``adc_lookup`` of two checkouts on one card.
+"""Time the port's three kernels of two checkouts on one card, and compare their bits.
 
     python3 tools/ab_kernels.py --parent DIR [--rounds 2] [--out PATH]
 
@@ -17,14 +17,19 @@ seeded inputs, with ``chip_smoke.py``'s timing helpers:
   time from the profiler (divided by the kernels it recorded) and the time
   a call in a CUDA graph of 200;
 * ``l2_topk`` at the closure shape (4096 x 214,790 x 96, k = 8) and the
-  ground-truth shape (512 x 1,000,000 x 96, k = 10) on normal random data.
+  ground-truth shape (512 x 1,000,000 x 96, k = 10) on normal random data;
+* ``l2_distance`` at the centroid probe's shape (512 x 214,790 x 96) on
+  normal random data, float32 (timed) and the same data in bfloat16.
 
-Prints one JSON line per run, the card's name and power limit, and a last
-line with the medians of each side.  Needs one CUDA card.
+Each run also writes a sha256 of every ``l2_topk`` and ``l2_distance``
+output.  Prints one JSON line per run, the card's name and power limit, and
+a last line with the medians of each side and, per output, whether every
+run of both sides gave the same bits.  Needs one CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -42,7 +47,7 @@ def worker(src: Path) -> dict:
     sys.path[:0] = [str(src), str(ROOT)]
     import torch
     from chip_smoke import graph_ms, kernel_device_ms, time_ms
-    from repro_torch.kernels import _build, fused_topk, pq_adc
+    from repro_torch.kernels import _build, distance, fused_topk, pq_adc
 
     if src.resolve() != (ROOT / "src").resolve():
         _build.BUILD_DIR = Path(tempfile.gettempdir()) / "repro_ab_kernels_build"
@@ -66,9 +71,25 @@ def worker(src: Path) -> dict:
         q = torch.randn((Q, 96), device="cuda", generator=g)
         x = torch.randn((N, 96), device="cuda", generator=g)
         out[f"{name}_ms"] = time_ms(lambda: fused_topk.l2_topk(q, x, k), reps)
-        del q, x
+        vals, ids = fused_topk.l2_topk(q, x, k)
+        out[f"sha_{name}"] = sha256(vals, ids)
+        del q, x, vals, ids
         torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((512, 96), device="cuda", generator=g)
+    x = torch.randn((214_790, 96), device="cuda", generator=g)
+    out["l2_distance_probe_ms"] = time_ms(lambda: distance.l2_distance(q, x), 20)
+    out["sha_l2_distance_probe_f32"] = sha256(distance.l2_distance(q, x))
+    out["sha_l2_distance_probe_bf16"] = sha256(
+        distance.l2_distance(q.bfloat16(), x.bfloat16()))
     return out
+
+
+def sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main(argv=None) -> int:
@@ -101,10 +122,12 @@ def main(argv=None) -> int:
             run = {"side": side, **json.loads(res.stdout.strip().splitlines()[-1])}
             runs.append(run)
             print(json.dumps(run), flush=True)
-    keys = [k for k in runs[0] if k != "side"]
+    keys = [k for k in runs[0] if k != "side" and not k.startswith("sha_")]
     summary = {side: {k: statistics.median(v) if (v := [
         r[k] for r in runs if r["side"] == side and r[k] is not None]) else None
         for k in keys} for side in sides}
+    same_bits = {k: len({r.get(k) for r in runs}) == 1
+                 for k in runs[0] if k.startswith("sha_")}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -112,9 +135,10 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": smi, "runs": runs,
-                                        "medians": summary}, indent=1))
-    print(json.dumps({"medians": summary}))
-    return 0
+                                        "medians": summary,
+                                        "same_bits": same_bits}, indent=1))
+    print(json.dumps({"medians": summary, "same_bits": same_bits}))
+    return 0 if all(same_bits.values()) else 1
 
 
 if __name__ == "__main__":
