@@ -31,7 +31,20 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    ``l2_distance``'s plan at the probe, its share of the bound, and the
    wide and simple instantiations held to the same bits (``torch.mm`` of
    the same operands timed as context);
-5. the calibration harness (``measure_table``) on the card.
+5. the calibration harness (``measure_table``) on the card; its table is
+   saved beside ``--out`` (or in a temporary directory) and prices the
+   fleet phases;
+6. the serving fleet (``repro_torch.fleet``): the cluster index of step 2
+   and the graph index of step 3, each served 4 shards x 2 replicas over
+   the ``tos`` object-storage preset with hedging and ``--backend kernel``
+   priced from step 5's table (2,000 and 1,000 queries).  Routing, storage
+   and virtual time are host simulation; a graph query's every round runs
+   ``adc_lookup`` on the card.  The fleet's ids must equal the direct
+   searches', and the graph fleet's ``adc_lookup`` launches must equal
+   queries + round trips;
+7. ``python -m repro_torch.fleet`` on the card as a user runs it (the
+   committed calibration table): the cluster fleet twice, which must give
+   the same JSON, and the graph fleet once.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -48,7 +61,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,6 +79,8 @@ SEARCH_LENS = (40, 128)
 BEAMWIDTH = 8
 ADC_RTOL, ADC_ATOL = 1e-5, 1e-4   # the reference's (tests/test_kernels.py)
 ADC_SWEEP_N = (256, 512, 1024, 2048, 4096, 8192, 16384)
+FLEET_QUERIES, GRAPH_FLEET_QUERIES = 2000, 1000
+CLI_TIMEOUT_S = 600
 
 
 def require(ok: bool, what: str) -> None:
@@ -359,7 +377,8 @@ def main(argv=None) -> int:
     t = phase("card vs CPU search", t)
 
     # ---- 3. graph path ---------------------------------------------------
-    gindex, gqueries, t = graph_path(args, dev, report, launches, t)
+    gindex, gqueries, ggt, gids, gadc, t = graph_path(args, dev, report,
+                                                      launches, t)
 
     # ---- 4. kernels against their plain versions, main-path shapes ----
     kernels = []
@@ -408,7 +427,6 @@ def main(argv=None) -> int:
         "name": "l2_distance", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l2_distance.cu",
         "replaces": "src/repro/kernels/distance.py:65",
-        "launches": sum(c["l2_distance"] for c in launches.values()),
         "max_abs_err": dist_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
@@ -506,7 +524,6 @@ def main(argv=None) -> int:
         "name": "l2_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk.py:64",
-        "launches": sum(c["l2_topk"] for c in launches.values()),
         "max_abs_err": topk_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "library": "two calls, context only: torch.cdist(use_mm_for_euclid_dist)"
@@ -550,13 +567,127 @@ def main(argv=None) -> int:
             "batched_topk not bit-exact on integer inputs with ties")
     t = phase("check batched_topk", t)
 
-    kernels.append(adc_check(gindex, gqueries, dev, peaks, launches, report))
+    kernels.append(adc_check(gindex, gqueries, dev, peaks, report))
     t = phase("check adc_lookup", t)
 
     # ---- 5. calibration harness ----------------------------------------
-    calibration(dev, report, args.out)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    table_path = (args.out.with_name(args.out.stem + ".calibration.json")
+                  if args.out is not None else Path(tmp.name) / "calibration.json")
+    calibration(dev, report, table_path)
     t = phase("calibration (measure_table)", t)
 
+    # ---- 6. the serving fleet over both indexes ------------------------
+    from repro_torch.core.types import SearchParams
+    nf = min(FLEET_QUERIES, args.queries)
+    sp = SearchParams(k=K, nprobe=NPROBES[0])
+    rep = serve_fleet("cluster", index, queries[:nf], sp, gt[:nf], table_path,
+                      report, launches)
+    # the fleet's ids against index.search on the first 64 queries. Both
+    # rank by a stable sort of f32 distances, so ids whose f32 distances are
+    # equal keep their position order: the fleet's merge lists the shards'
+    # top-ks shard by shard, the single scan its posting lists in probe
+    # order, and such a tie may come out the other way round. A row may
+    # differ only where (a) both sides hold the same ids, each in its own
+    # f32 order, and (b) every pair the two order differently is such a
+    # tie (equal f32 distances on both sides) or follows its values, each
+    # value within f32 of its float64 distance and the pair's float64
+    # distances within f32 of each other
+    hits = [index.search(queries[i], sp) for i in range(64)]
+    direct = np.stack([h.ids for h in hits])
+    direct_d = np.stack([h.dists for h in hits])
+    by_qid = {r.qid: r for r in rep.records}
+    fleet_ids = np.stack([by_qid[i].ids for i in range(64)])
+    fleet_d = np.stack([by_qid[i].dists for i in range(64)])
+    q64 = qt[:64]
+    tol64 = TOL * ((q64 * q64).sum(-1) + (xs * xs).sum(-1).max()) + 1e-6
+    n_diff, ties = near_tie_rows(torch.from_numpy(fleet_ids).to(dev),
+                                 torch.from_numpy(direct).to(dev), q64, xs, tol64)
+    sorted_ok = all(bool((d[:, 1:] >= d[:, :-1]).all()) for d in (fleet_d, direct_d))
+    same_f32 = int((np.sort(fleet_d, 1) == np.sort(direct_d, 1)).all(1).sum())
+    differ = np.flatnonzero((fleet_ids != direct).any(1))
+    same_ids = all(set(fleet_ids[i].tolist()) == set(direct[i].tolist()) for i in differ)
+    swaps = []
+    for i in differ:
+        fd = dict(zip(fleet_ids[i].tolist(), fleet_d[i].tolist()))
+        sd = dict(zip(direct[i].tolist(), direct_d[i].tolist()))
+        fr = {v: r for r, v in enumerate(fleet_ids[i].tolist())}
+        sr = {v: r for r, v in enumerate(direct[i].tolist())}
+        both = sorted(fr.keys() & sr.keys(), key=fr.get)
+        for a_pos, a in enumerate(both):
+            for b in both[a_pos + 1:]:
+                if sr[a] > sr[b]:
+                    exact = ((xs[[a, b]].double() - qt[i].double()) ** 2).sum(-1).tolist()
+                    tol = float(tol64[i])
+                    swaps.append({
+                        "query": int(i), "ids": [a, b],
+                        "fleet_ranks": [fr[a], fr[b]], "search_ranks": [sr[a], sr[b]],
+                        "fleet_f32": [fd[a], fd[b]], "search_f32": [sd[a], sd[b]],
+                        "f64": exact, "tol": tol,
+                        "kind": ("f32 tie" if fd[a] == fd[b] and sd[a] == sd[b]
+                                 else "f32 values"),
+                        "explained": (abs(exact[0] - exact[1]) <= 2 * tol and all(
+                            abs(v - e) <= tol for side in (fd, sd)
+                            for v, e in zip((side[a], side[b]), exact)))})
+    report["fleet"]["cluster"]["rows_differing_from_search"] = n_diff
+    report["fleet"]["cluster"]["rows_with_the_same_f32_distances"] = same_f32
+    report["fleet"]["cluster"]["swaps"] = swaps
+    for i in differ[:8]:
+        print(f"fleet cluster vs index.search, query {i}: fleet {fleet_ids[i]} "
+              f"search {direct[i]}")
+    for s in swaps[:8]:
+        print(f"fleet cluster swap ({s['kind']}), query {s['query']}, ids {s['ids']}: "
+              f"fleet ranks {s['fleet_ranks']} f32 {s['fleet_f32'][0]!r} "
+              f"{s['fleet_f32'][1]!r}; search ranks {s['search_ranks']} f32 "
+              f"{s['search_f32'][0]!r} {s['search_f32'][1]!r}; float64 "
+              f"{s['f64'][0]!r} {s['f64'][1]!r}; f32 tolerance {s['tol']!r}")
+    print(f"fleet cluster vs index.search, 64 queries: {64 - n_diff} rows "
+          f"identical, {n_diff} differ, all near-ties: {ties}, same ids: {same_ids}, "
+          f"swaps within f32 of float64: {all(s['explained'] for s in swaps)}; "
+          f"{same_f32} rows with the same f32 distances")
+    require(sorted_ok, "fleet or index.search rows not in their f32 distance order")
+    require(same_ids, "fleet (cluster) rows hold other ids than index.search's")
+    require(all(s["explained"] for s in swaps),
+            "fleet ids swapped against index.search beyond f32 rounding")
+    require(ties, f"fleet (cluster) ids differ from index.search beyond "
+            f"near-ties in {n_diff} of the first 64 queries")
+    t = phase("fleet: cluster index, 4 shards x 2 replicas", t)
+
+    ng = min(GRAPH_FLEET_QUERIES, args.graph_queries)
+    sp = SearchParams(k=K, search_len=SEARCH_LENS[0], beamwidth=BEAMWIDTH)
+    rep = serve_fleet("graph", gindex, gqueries[:ng], sp, ggt[:ng], table_path,
+                      report, launches)
+    # one lookup for each query's medoid and one for each round that found
+    # new neighbours: the graph path's own count on these queries, and at
+    # most queries + round trips
+    f = report["fleet"]["graph"]
+    n_adc, rts = f["launches"]["adc_lookup"], f["roundtrips"]
+    f["rounds_without_new_neighbours"] = ng + rts - n_adc
+    print(f"fleet graph: {n_adc} adc_lookup launches = {ng} queries + {rts} "
+          f"round trips - {ng + rts - n_adc} rounds without new neighbours; "
+          f"the graph path launched {gadc[ng - 1]} on these queries")
+    require(n_adc == gadc[ng - 1] and rts <= n_adc <= ng + rts,
+            f"graph fleet: {n_adc} adc_lookup launches for {ng} queries and "
+            f"{rts} round trips; the graph path launched {gadc[ng - 1]}")
+    require(all(np.array_equal(r.ids, gids[r.qid]) for r in rep.records)
+            and len(rep.records) == ng,
+            f"graph fleet ids differ from the graph path's search at "
+            f"search_len {SEARCH_LENS[0]}")
+    direct_rec = float(np.mean([recall_at_k(gids[r.qid], ggt[r.qid])
+                                for r in rep.records]))
+    require(f["recall@10"] == direct_rec,
+            f"graph fleet recall {f['recall@10']} vs the direct search's {direct_rec}")
+    t = phase("fleet: graph index, 4 shards x 2 replicas", t)
+    tmp.cleanup()
+
+    # ---- 7. the fleet CLI on the card ----------------------------------
+    fleet_cli(report)
+    t = phase("fleet CLI on the card", t)
+
+    for kern in kernels:
+        kern["launches"] = sum(c[kern["name"]] for c in launches.values())
+    report["launches"] = launches
+    print("launches on the main paths: " + json.dumps(launches))
     report["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -581,7 +712,9 @@ def _timed(fn, spent: dict, key: str):
 
 def graph_path(args, dev, report, launches, t):
     """Build the graph index on the card, take its ground truth and search
-    it at each search_len; returns (index, queries, phase clock)."""
+    it at each search_len; returns (index, queries, ground truth, the ids of
+    the search at the first search_len, the adc_lookup launches of that
+    search after each query, phase clock)."""
     from repro_torch.convert import graph_index_from_reference
     from repro_torch.core import graph_index as gi
     from repro_torch.core import pq as pqmod
@@ -662,23 +795,29 @@ def graph_path(args, dev, report, launches, t):
 
     index.search(queries[0], SearchParams(k=K, search_len=SEARCH_LENS[0],
                                           beamwidth=BEAMWIDTH))   # warm-up
-    recs = []
+    recs, ids_at, adc_after = [], {}, {}
+    adc = _kernels()["adc_lookup"]
     for sl in SEARCH_LENS:
         sp = SearchParams(k=K, search_len=sl, beamwidth=BEAMWIDTH)
         adc_s = {"adc": 0.0}      # ids to the card, lookup, distances back
         index._adc = _timed(index._adc, adc_s, "adc")
         reset()
         torch.cuda.synchronize()
+        res, after = [], []
+        adc_after[sl] = after
         t0 = time.perf_counter()
-        res = [index.search(q, sp) for q in queries]
+        for q in queries:
+            res.append(index.search(q, sp))
+            after.append(adc.launches)    # launches after each query
         dt = time.perf_counter() - t0
         c = launches[f"graph_search_L{sl}"] = counts()
         del index._adc
-        ids = np.stack([r.ids for r in res])
+        ids = ids_at[sl] = np.stack([r.ids for r in res])
         rec = float(np.mean([recall_at_k(ids[i], gt[i]) for i in range(nq)]))
         rts = sum(r.metrics.roundtrips for r in res)
         rows = sum(r.metrics.pq_dist_comps for r in res)
         # one lookup for the medoid, then one per round with new neighbours
+        # (a round whose neighbours were all seen before launches none)
         require(rts <= c["adc_lookup"] <= nq + rts,
                 f"search_len {sl}: {c['adc_lookup']} adc_lookup launches for "
                 f"{rts} round trips of {nq} queries")
@@ -714,7 +853,7 @@ def graph_path(args, dev, report, launches, t):
     require(np.mean(over) >= 0.99, "graph search on the card disagrees with "
             "the CPU plain path")
     t = phase("graph: card vs CPU search", t)
-    return index, queries, t
+    return index, queries, gt, ids_at[SEARCH_LENS[0]], adc_after[SEARCH_LENS[0]], t
 
 
 def adc_paths(codes, tab, got, label) -> dict:
@@ -741,7 +880,7 @@ def adc_paths_text(r: dict) -> str:
     return f"{dev}, {r['graph_ms']:.6f} ms a call in a CUDA graph"
 
 
-def adc_check(index, queries, dev, peaks, launches, report) -> dict:
+def adc_check(index, queries, dev, peaks, report) -> dict:
     """``adc_lookup`` against its plain version at a real search round's
     codes, at the whole code array, and at the GIST shape (m = 120, the
     dynamic shared-memory path); times kernel, plain version and
@@ -824,7 +963,6 @@ def adc_check(index, queries, dev, peaks, launches, report) -> dict:
         "name": "adc_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pq_adc.cu",
         "replaces": "src/repro/kernels/pq_adc.py:41",
-        "launches": sum(c["adc_lookup"] for c in launches.values()),
         "max_abs_err": err, "ms": first["ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound_ms"], "bound_by": "bytes",
         "library_ms": first["library_ms"],
@@ -837,9 +975,9 @@ def adc_check(index, queries, dev, peaks, launches, report) -> dict:
                    f"direct path give identical bits"}
 
 
-def calibration(dev, report, out) -> None:
+def calibration(dev, report, path: Path) -> None:
     """``measure_table`` on the card: every unit cost positive and every
-    dist point under the FP32 roofline."""
+    dist point under the FP32 roofline; the table is saved at ``path``."""
     from repro_torch.exec import measure_table
 
     reset()
@@ -859,9 +997,101 @@ def calibration(dev, report, out) -> None:
     for e in table.entries:
         print(f"  {e.op} dim={e.dim} pq_m={e.pq_m} batch={e.batch}: "
               f"{e.us_per_call:.1f} us/call, unit_s {e.unit_s:.3e}")
-    if out is not None:
-        out.parent.mkdir(parents=True, exist_ok=True)
-        table.save(str(out.with_name(out.stem + ".calibration.json")))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    table.save(str(path))
+
+
+def serve_fleet(label, index, queries, params, gt, table_path, report,
+                launches):
+    """Serve ``queries`` through the fleet (4 shards x 2 replicas, hedged,
+    ``tos`` storage, the kernel backend priced from ``table_path``); prints
+    and reports what the fleet measured and returns its report."""
+    from repro_torch.fleet import FleetConfig, FleetRouter
+    from repro_torch.storage.spec import TOS
+
+    cfg = FleetConfig(n_shards=4, replication=2, concurrency=64,
+                      shard_concurrency=8, queue_depth=64, hedge=True,
+                      storage=TOS, backend="kernel", batch_window_s=200e-6,
+                      calibration=str(table_path), seed=0)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # run_fleet's one call, kept as a router so its backends can be read
+    router = FleetRouter(index, cfg)
+    rep = router.run(queries, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = launches[f"fleet_{label}"] = counts()
+    backends = [srv.engine.backend for g in router.groups
+                for srv in g.all_servers() if srv.engine.backend is not None]
+    batches = sum(be.batches for be in backends)
+    s = rep.summary()
+    f = report.setdefault("fleet", {})[label] = {
+        "config": cfg.to_dict(), "queries": len(queries),
+        "virtual_qps": s["qps"], "p50_s": s["p50_latency_s"],
+        "p99_s": s["p99_latency_s"], "p999_s": s["p999_latency_s"],
+        "hedge_rate": s["hedge_rate"], "shed_rate": s["shed_rate"],
+        "backend_instances": len(backends), "backend_batches": batches,
+        "jobs_batched": sum(be.jobs_batched for be in backends),
+        "mean_occupancy": (sum(be.occupancy_sum for be in backends) / batches
+                           if batches else 0.0),
+        "recall@10": rep.recall_against(gt),
+        "roundtrips": sum(r.metrics.roundtrips for r in rep.records),
+        "wall_s": wall, "launches": c}
+    require(len(rep.records) == len(queries) and s["shed_rate"] < 1.0,
+            f"fleet ({label}) served {len(rep.records)} of {len(queries)}")
+    print(f"fleet {label}: {len(queries)} queries, virtual {f['virtual_qps']:.1f} "
+          f"queries/s, p50 {f['p50_s'] * 1e3:.3f} ms, p99 {f['p99_s'] * 1e3:.3f} ms, "
+          f"p99.9 {f['p999_s'] * 1e3:.3f} ms; hedge rate {f['hedge_rate']}, shed "
+          f"rate {f['shed_rate']}; KernelBackend {batches} batches over "
+          f"{len(backends)} instances, mean occupancy {f['mean_occupancy']:.4f}; "
+          f"recall@10 {f['recall@10']:.4f}; {f['roundtrips']} round trips; "
+          f"launches {c}; simulation wall {wall:.3f} s")
+    return rep
+
+
+def fleet_cli(report) -> None:
+    """``python -m repro_torch.fleet`` as a user runs it on the card: the
+    cluster fleet twice (the JSON, ``meta`` aside, must be the same), the
+    same with ``--device cpu`` (printed, not required: near-tie closure
+    pairs may differ), then the graph fleet once."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cluster = ["--shards", "4", "--replicas", "2", "--backend", "kernel"]
+    graph = ["--index", "graph", "--hedge", "--replicas", "2"]
+    runs = {}
+    for name, flags in (("cluster", cluster), ("cluster_again", cluster),
+                        ("cluster_cpu", cluster + ["--device", "cpu"]),
+                        ("graph", graph)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.fleet", "--compact", *flags],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"fleet CLI {name} exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        try:
+            out = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            out = None
+        require(isinstance(out, dict) and "recall" in out,
+                f"fleet CLI {name} printed no JSON report with a recall")
+        out.pop("meta", None)
+        runs[name] = json.dumps(out, sort_keys=True)
+        rep = out["report"]
+        report.setdefault("fleet_cli", {})[name] = {
+            "flags": flags, "wall_s": wall, "recall": out["recall"],
+            "qps": rep["qps"], "p99_s": rep["p99_latency_s"]}
+        print(f"fleet CLI {name} ({' '.join(flags)}): recall {out['recall']}, "
+              f"virtual {rep['qps']} queries/s, p99 {rep['p99_latency_s']} s, "
+              f"{wall:.3f} s wall")
+    require(runs["cluster"] == runs["cluster_again"],
+            "the fleet CLI's cluster JSON differs between two runs on the card")
+    same_cpu = runs["cluster"] == runs["cluster_cpu"]
+    report["fleet_cli"]["cluster_equals_cpu"] = same_cpu
+    print(f"fleet CLI: two cluster runs on the card identical; equal to "
+          f"--device cpu: {same_cpu}")
 
 
 if __name__ == "__main__":

@@ -19,9 +19,13 @@ overhead and fill the card, so ``unit_s`` falls with batch size and the
 table interpolates (linearly in log batch size, clamped at the measured
 ends) between grid points.
 
-No table is committed with the port (the reference's default was measured
-with the Pallas interpreter on a CPU, which prices nothing on a card), so
-:func:`load_table` needs a path.  Measure one on the card with::
+Measurements vary per card, so a table measured once on an H100 with the
+calibrate CLI is committed as ``calibration_default.json`` (its ``meta``
+names the card and its power limit as ``nvidia-smi`` gives them) and
+loaded by default — simulations stay deterministic across machines while
+still being priced from the card's kernel timings.  The reference's own
+default was timed with the Pallas interpreter on a CPU and prices nothing
+on a card, so the port does not use it.  Re-measure on the card with::
 
     python -m repro_torch.exec.calibrate --out calibration.json
 """
@@ -30,10 +34,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 
 __all__ = ["CalibEntry", "CalibrationTable", "CALIBRATE_COMMAND",
-           "load_table"]
+           "DEFAULT_TABLE_PATH", "load_table"]
 
+#: The committed table, measured once on the card (see module docstring).
+DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
+                                  "calibration_default.json")
 CALIBRATE_COMMAND = "python -m repro_torch.exec.calibrate --out calibration.json"
 
 
@@ -173,13 +181,6 @@ class CalibrationTable:
 
 
 def load_table(path: str | None = None) -> CalibrationTable:
-    """Load a calibration table measured by :mod:`repro_torch.exec.calibrate`.
-
-    The port commits no default table: ``path=None`` raises and names the
-    command that measures one.
-    """
-    if path is None:
-        raise FileNotFoundError(
-            "repro_torch ships no calibration table; measure one on the "
-            f"card with `{CALIBRATE_COMMAND}` and pass its path")
-    return CalibrationTable.load(path)
+    """Load a calibration table; ``None`` means the committed default,
+    measured on the card by ``CALIBRATE_COMMAND``."""
+    return CalibrationTable.load(path or DEFAULT_TABLE_PATH)

@@ -18,6 +18,7 @@ from repro_torch.core.pq import train_pq  # noqa: E402
 from repro_torch.core.types import (ClusterIndexParams,  # noqa: E402
                                     GraphIndexParams)
 from repro_torch.exec import batched_topk, measure_table  # noqa: E402
+from repro_torch.fleet.__main__ import main as fleet_main  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -65,6 +66,9 @@ def test_default_device_raises_without_cuda():
         train_pq(x, 4)
     with pytest.raises(RuntimeError):
         measure_table(quick=True)
+    # the fleet CLI builds its index on the card unless told --device cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet_main(["--n", "40", "--dim", "8", "--queries", "2"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
