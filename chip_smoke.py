@@ -42,9 +42,27 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    ``adc_lookup`` on the card.  The fleet's ids must equal the direct
    searches', and the graph fleet's ``adc_lookup`` launches must equal
    queries + round trips;
-7. ``python -m repro_torch.fleet`` on the card as a user runs it (the
-   committed calibration table): the cluster fleet twice, which must give
-   the same JSON, and the graph fleet once.
+7. multi-tenancy (``repro_torch.tenancy``): both indexes as two tenants
+   of one such fleet with a ``weighted`` 64 MiB cache a node
+   (``measure_interference``: the shared run, then each tenant solo):
+   ``search-hot`` (the cluster index, a Zipf trace at 500 queries/s) and
+   ``analytics`` (the graph index, a burst at 50 queries/s).  Each tenant's
+   ids must equal step 6's for the same query, and the graph tenant's
+   ``adc_lookup`` launches its queries' own counts;
+8. the write path (``repro_torch.ingest``) on the cluster index: the same
+   fleet serves 2,000 queries under 400 inserts and deletes at 400/s with
+   a 64 KiB delta tier a site.  Every update must be applied, the merged
+   search must return no deleted id, and ``churn_ground_truth`` on the
+   card (``l2_topk``) must give the plain version's ids up to near-ties;
+9. the same on the graph index (1,000 queries, the medoid protected; the
+   inserts are stitched in through ``adc_lookup``).  Steps 8-9 rewrite
+   the indexes' stores, so they come last;
+10. ``python -m repro_torch.fleet`` on the card as a user runs it (the
+   committed calibration table) and with ``--device cpu``: the cluster
+   fleet twice, which must give the same JSON; the graph fleet, which on
+   the CPU must give the reference's 60.3254 virtual queries/s; the write
+   path (``--scenario rw``) twice and on the CPU, and ``--tenants`` on the
+   card and on the CPU, each of which must give one JSON.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -377,8 +395,8 @@ def main(argv=None) -> int:
     t = phase("card vs CPU search", t)
 
     # ---- 3. graph path ---------------------------------------------------
-    gindex, gqueries, ggt, gids, gadc, t = graph_path(args, dev, report,
-                                                      launches, t)
+    gindex, gdata, gqueries, ggt, gids, gadc, t = graph_path(
+        args, dev, report, launches, t)
 
     # ---- 4. kernels against their plain versions, main-path shapes ----
     kernels = []
@@ -581,8 +599,8 @@ def main(argv=None) -> int:
     from repro_torch.core.types import SearchParams
     nf = min(FLEET_QUERIES, args.queries)
     sp = SearchParams(k=K, nprobe=NPROBES[0])
-    rep = serve_fleet("cluster", index, queries[:nf], sp, gt[:nf], table_path,
-                      report, launches)
+    rep = crep = serve_fleet("cluster", index, queries[:nf], sp, gt[:nf],
+                             table_path, report, launches)
     # the fleet's ids against index.search on the first 64 queries. Both
     # rank by a stable sort of f32 distances, so ids whose f32 distances are
     # equal keep their position order: the fleet's merge lists the shards'
@@ -678,9 +696,25 @@ def main(argv=None) -> int:
     require(f["recall@10"] == direct_rec,
             f"graph fleet recall {f['recall@10']} vs the direct search's {direct_rec}")
     t = phase("fleet: graph index, 4 shards x 2 replicas", t)
+
+    # ---- 7. multi-tenancy: both indexes as tenants of one fleet --------
+    tenancy(index, queries[:nf], gt[:nf], crep, gindex, gqueries[:ng],
+            ggt[:ng], rep, np.diff(np.asarray([0] + list(gadc))), table_path,
+            report, launches)
+    t = phase("tenancy: 2 tenants over one fleet, weighted cache, and solo", t)
+
+    # ---- 8-9. the write path (mutates the indexes' stores: last) -------
+    write_path("cluster", index, data, queries[:nf],
+               SearchParams(k=K, nprobe=NPROBES[0]), None, table_path, dev,
+               report, launches)
+    t = phase("write path: cluster index", t)
+    write_path("graph", gindex, gdata, gqueries[:ng], sp,
+               frozenset([gindex.meta.medoid]), table_path, dev, report,
+               launches)
+    t = phase("write path: graph index", t)
     tmp.cleanup()
 
-    # ---- 7. the fleet CLI on the card ----------------------------------
+    # ---- 10. the fleet CLI on the card ---------------------------------
     fleet_cli(report)
     t = phase("fleet CLI on the card", t)
 
@@ -712,9 +746,9 @@ def _timed(fn, spent: dict, key: str):
 
 def graph_path(args, dev, report, launches, t):
     """Build the graph index on the card, take its ground truth and search
-    it at each search_len; returns (index, queries, ground truth, the ids of
-    the search at the first search_len, the adc_lookup launches of that
-    search after each query, phase clock)."""
+    it at each search_len; returns (index, data, queries, ground truth, the
+    ids of the search at the first search_len, the adc_lookup launches of
+    that search after each query, phase clock)."""
     from repro_torch.convert import graph_index_from_reference
     from repro_torch.core import graph_index as gi
     from repro_torch.core import pq as pqmod
@@ -783,8 +817,8 @@ def graph_path(args, dev, report, launches, t):
             "graph degree above R or a self loop")
     g["mean_degree"] = float(deg.mean())
     print(f"graph: {n} nodes, mean degree {deg.mean():.2f}, node block "
-          f"{index.meta.node_nbytes} bytes, codes {tuple(index.codes_dev.shape)} "
-          f"{index.codes_dev.dtype} on {index.codes_dev.device}")
+          f"{index.meta.node_nbytes} bytes, codes {index.meta.codes.shape} "
+          f"{index.meta.codes.dtype}, a round's codes gathered to {index.device}")
 
     reset()
     gt, _ = exact_topk(data, queries, K, device=dev)
@@ -853,7 +887,8 @@ def graph_path(args, dev, report, launches, t):
     require(np.mean(over) >= 0.99, "graph search on the card disagrees with "
             "the CPU plain path")
     t = phase("graph: card vs CPU search", t)
-    return index, queries, gt, ids_at[SEARCH_LENS[0]], adc_after[SEARCH_LENS[0]], t
+    return (index, data, queries, gt, ids_at[SEARCH_LENS[0]],
+            adc_after[SEARCH_LENS[0]], t)
 
 
 def adc_paths(codes, tab, got, label) -> dict:
@@ -903,13 +938,14 @@ def adc_check(index, queries, dev, peaks, report) -> dict:
         del pq.adc_lookup_dev
     round_codes, table = max(seen, key=lambda ct: len(ct[0]))
     rng = np.random.default_rng(1)
-    n_all = index.codes_dev.shape[0]
+    codes_all = index.codes_dev
+    n_all = codes_all.shape[0]
     gist_codes = torch.from_numpy(
         rng.integers(0, 256, (n_all, 120), dtype=np.uint8)).to(dev)
     gist_table = torch.from_numpy(
         rng.random((120, 256), dtype=np.float32)).to(dev)
     cases = (("search round", round_codes, table, 500, 500),
-             ("all codes", index.codes_dev, table, 50, 10),
+             ("all codes", codes_all, table, 50, 10),
              ("gist m=120", gist_codes, gist_table, 50, 10))
     shapes, err = [], 0.0
     for label, codes, tab, reps, plain_reps in cases:
@@ -950,7 +986,7 @@ def adc_check(index, queries, dev, peaks, report) -> dict:
     # the graph's codes with the round's table
     sweep = []
     for N in ADC_SWEEP_N:
-        codes = index.codes_dev[:N]
+        codes = codes_all[:N]
         paths = adc_paths(codes, table, pq_adc.adc_lookup(codes, table),
                           f"{N} rows")
         sweep.append({"n": N, "paths": paths})
@@ -1001,18 +1037,195 @@ def calibration(dev, report, path: Path) -> None:
     table.save(str(path))
 
 
+def fleet_config(table_path, **kw):
+    """The smoke's fleet: 4 shards x 2 replicas, hedged, ``tos`` storage,
+    the kernel backend priced from ``table_path``, seed 0."""
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.storage.spec import TOS
+    return FleetConfig(n_shards=4, replication=2, concurrency=64,
+                       shard_concurrency=8, queue_depth=64, hedge=True,
+                       storage=TOS, backend="kernel", batch_window_s=200e-6,
+                       calibration=str(table_path), seed=0, **kw)
+
+
+def tenancy(index, queries, gt, crep, gindex, gqueries, ggt, grep, gadc_q,
+            table_path, report, launches) -> None:
+    """Two tenants share one fleet (``measure_interference``: the shared
+    run, then each tenant solo): ``search-hot``, the cluster index under a
+    Zipf trace at 500 queries/s, weight 2, SLO 60 ms; ``analytics``, the
+    graph index under a burst at 50 queries/s (x10), weight 1, SLO 150 ms;
+    the ``weighted`` cache policy at 64 MiB a node.  The tenants wrap the
+    read-only indexes (no build).  Each tenant's ids must equal the
+    single-tenant fleet's for the same query (``crep``, ``grep``), and the
+    graph tenant's ``adc_lookup`` launches its queries' own counts
+    (``gadc_q``: the graph path's launches a query) in both runs."""
+    from repro_torch.core.types import SearchParams
+    from repro_torch.tenancy import Tenant, TenantSpec, measure_interference
+
+    cfg = fleet_config(table_path, cache_bytes=64 << 20, cache_policy="slru")
+    specs = (
+        TenantSpec(name="search-hot", n=index.meta.n_data, dim=index.meta.dim,
+                   index="cluster", n_queries=len(queries), k=K,
+                   nprobe=NPROBES[0], scenario="trace", rate_qps=500.0,
+                   n_arrivals=len(queries), slo_ms=60, weight=2.0),
+        TenantSpec(name="analytics", n=gindex.meta.n_data, dim=gindex.meta.dim,
+                   index="graph", n_queries=len(gqueries), k=K,
+                   search_len=SEARCH_LENS[0], beamwidth=BEAMWIDTH,
+                   scenario="burst", rate_qps=50.0, burst_factor=10.0,
+                   n_arrivals=len(gqueries), slo_ms=150, weight=1.0))
+    params = (SearchParams(k=K, nprobe=NPROBES[0]),
+              SearchParams(k=K, search_len=SEARCH_LENS[0], beamwidth=BEAMWIDTH))
+
+    def make_tenants():
+        return [Tenant(spec=sp, index=ix, queries=q, params=pa)
+                for sp, ix, q, pa in zip(specs, (index, gindex),
+                                         (queries, gqueries), params)]
+
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = measure_interference(make_tenants, cfg, "weighted")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = launches["tenancy"] = counts()
+    out = report["tenancy"] = {"config": cfg.to_dict(), "policy": "weighted",
+                               "wall_s": wall, "launches": c,
+                               "reallocations": rep.reallocations,
+                               "aggregate_goodput_qps": rep.aggregate_goodput_qps,
+                               "tenants": {}}
+    for sl, single, truth in zip(rep.tenants, (crep, grep), (gt, ggt)):
+        by_qid = {r.qid: r.ids for r in single.records}
+        require(len(sl.records) > 0, f"tenant {sl.name} served nothing")
+        same = all(np.array_equal(r.ids, by_qid[r.qid]) for r in sl.records)
+        rec = sl.recall_against(truth)
+        d = out["tenants"][sl.name] = {
+            "queries": len(sl.records), "p50_s": sl.latency_percentile(50),
+            "p99_s": sl.latency_percentile(99),
+            "p99_sojourn_s": sl.sojourn_percentile(99),
+            "goodput_qps": sl.goodput_qps, "goodput_frac": sl.goodput_frac,
+            "hit_rate": sl.hit_rate, "interference_ratio": sl.interference_ratio,
+            "recall@10": rec, "ids_equal_single_tenant": same,
+            "cache_quota_bytes": sl.cache_quota_bytes}
+        print(f"tenant {sl.name}: {len(sl.records)} queries, p50 "
+              f"{d['p50_s'] * 1e3:.3f} ms, p99 {d['p99_s'] * 1e3:.3f} ms, "
+              f"goodput {d['goodput_qps']:.2f} queries/s "
+              f"({d['goodput_frac']:.4f} within its SLO), hit rate "
+              f"{d['hit_rate']:.4f}, interference ratio "
+              f"{d['interference_ratio']}, recall@10 {rec:.4f}; ids equal the "
+              f"single-tenant fleet's: {same}")
+        require(same, f"tenant {sl.name}: ids differ from the single-tenant "
+                f"fleet's for the same queries")
+    # the solo run replays the tenant's arrival sample, so each of its
+    # queries launches again what it launched in the shared run
+    g = rep.tenant("analytics")
+    want = 2 * int(sum(gadc_q[r.qid] for r in g.records))
+    out["adc_lookup_expected"] = want
+    print(f"tenancy: {c['adc_lookup']} adc_lookup launches, the graph path's "
+          f"count for the graph tenant's queries in the shared and the solo run "
+          f"{want}; {c['l2_topk']} l2_topk; {rep.reallocations} quota "
+          f"reallocations; aggregate goodput {rep.aggregate_goodput_qps:.2f} "
+          f"queries/s; simulation wall {wall:.3f} s")
+    require(c["adc_lookup"] == want,
+            f"tenancy: {c['adc_lookup']} adc_lookup launches, expected {want}")
+
+
+def write_path(label, index, data, queries, params, protected, table_path,
+               dev, report, launches) -> None:
+    """``run_fleet`` with the documented rw stream (400 updates at 400/s,
+    a fifth deletes, seed 0; a 64 KiB delta tier a site) on the smoke's
+    fleet.  Every update must be applied (its id live or deleted as the
+    stream leaves it); the merged search on the first 64 queries must
+    return no deleted id; ``churn_ground_truth`` on the card must give the
+    plain version's ids on those queries, up to near-ties."""
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.ingest import (IngestConfig, churn_ground_truth,
+                                    churned_corpus, synth_updates)
+
+    stream = synth_updates(data, rate_qps=400.0, n_updates=400,
+                           delete_frac=0.2, seed=0, protected=protected)
+    cfg = fleet_config(table_path)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router = FleetRouter(index, cfg)
+    rep = router.run(queries, params, updates=stream,
+                     ingest=IngestConfig(delta_cap_bytes=64 * 1024))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ctx = router.ctxs[0]
+    mut, ing = ctx.index, ctx.ingest_report
+    # the state each id ends in, by its last op
+    last = {op.id: op.kind for op in stream.ops}
+    live = [i for i, k in last.items() if k == "insert"]
+    gone = [i for i, k in last.items() if k == "delete"]
+    in_delta = set().union(*(m.entries for m in mut.sites.values()))
+    if label == "cluster":
+        sealed = [i for i in live if i in mut._id_lists]
+    else:
+        sealed = [i for i in live if ("node", i) in mut.store]
+    applied = (all(i in sealed or i in in_delta for i in live)
+               and all(i in mut.deleted for i in gone))
+    c_run = counts()
+    reset()
+    gt = churn_ground_truth(data, stream, queries, K, device=dev)
+    c = launches[f"write_path_{label}"] = {
+        k: c_run[k] + v for k, v in counts().items()}
+    dead = mut.deleted_array()
+    merged = [mut.search(q, params) for q in queries[:64]]
+    leaked = sum(len(np.intersect1d(r.ids, dead)) for r in merged)
+    want = churn_ground_truth(data, stream, queries[:64], K, device="cpu")
+    corpus, cids = churned_corpus(data, stream)
+    xs = torch.from_numpy(np.ascontiguousarray(corpus, np.float32)).to(dev)
+    q64 = torch.from_numpy(np.ascontiguousarray(queries[:64], np.float32)).to(dev)
+    tol64 = TOL * ((q64 * q64).sum(-1) + (xs * xs).sum(-1).max()) + 1e-6
+    pos = lambda ids: torch.from_numpy(np.searchsorted(cids, ids)).to(dev)
+    n_diff, ties = near_tie_rows(pos(gt[:64]), pos(want), q64, xs, tol64)
+    del xs
+    torch.cuda.empty_cache()
+    d = ing.to_dict(rep.records)
+    lags = np.asarray(ing.visibility_lags)
+    out = report.setdefault("write_path", {})[label] = {
+        "queries": len(queries), "updates": len(stream),
+        "inserts": stream.n_inserts, "deletes": stream.n_deletes,
+        "virtual_qps": rep.summary()["qps"],
+        "p99_s": rep.summary()["p99_latency_s"],
+        "recall@10_churned": rep.recall_against(gt), "ingest": d,
+        "freshness_lag_p50_s": float(np.percentile(lags, 50)),
+        "freshness_lag_p99_s": float(np.percentile(lags, 99)),
+        "sealed_inserts": len(sealed), "wall_s": wall,
+        "gt_rows_differing_from_plain": n_diff, "launches": c}
+    print(f"write path {label}: {len(queries)} queries, {len(stream)} updates "
+          f"({stream.n_inserts} inserts, {stream.n_deletes} deletes), "
+          f"{d['ops_delivered']} deliveries to sites, {ing.updates_applied} "
+          f"applies; virtual {out['virtual_qps']} queries/s, p99 "
+          f"{out['p99_s'] * 1e3:.3f} ms; recall@10 against the churned ground "
+          f"truth {out['recall@10_churned']:.4f}; {d['flushes']} flushes, "
+          f"{d['lists_rewritten']} lists rewritten, {d['reclusters']} splits, "
+          f"{d['blocks_rewritten']} blocks rewritten, {d['repairs']} repaired "
+          f"nodes, {len(sealed)} of {len(live)} live inserts sealed "
+          f"(stitched into the graph for a graph index); write amplification "
+          f"{d['write_amplification']}; freshness lag p50 "
+          f"{out['freshness_lag_p50_s'] * 1e3:.3f} ms, p99 "
+          f"{out['freshness_lag_p99_s'] * 1e3:.3f} ms; launches {c}; "
+          f"simulation wall {wall:.3f} s")
+    print(f"write path {label}: churned ground truth on the card vs the plain "
+          f"version, 64 queries: {n_diff} rows differ, all near-ties: {ties}; "
+          f"deleted ids in the merged search of 64 queries: {leaked}")
+    require(ing.updates_applied >= len(stream) and applied,
+            f"write path {label}: not every update was applied")
+    require(leaked == 0, f"write path {label}: {leaked} deleted ids returned")
+    require(ties, f"write path {label}: churned ground truth on the card "
+            f"differs from the plain version beyond near-ties")
+
+
 def serve_fleet(label, index, queries, params, gt, table_path, report,
                 launches):
     """Serve ``queries`` through the fleet (4 shards x 2 replicas, hedged,
     ``tos`` storage, the kernel backend priced from ``table_path``); prints
     and reports what the fleet measured and returns its report."""
-    from repro_torch.fleet import FleetConfig, FleetRouter
-    from repro_torch.storage.spec import TOS
+    from repro_torch.fleet import FleetRouter
 
-    cfg = FleetConfig(n_shards=4, replication=2, concurrency=64,
-                      shard_concurrency=8, queue_depth=64, hedge=True,
-                      storage=TOS, backend="kernel", batch_window_s=200e-6,
-                      calibration=str(table_path), seed=0)
+    cfg = fleet_config(table_path)
     reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1050,19 +1263,45 @@ def serve_fleet(label, index, queries, params, gt, table_path, report,
     return rep
 
 
+#: the ``tenants.json`` of ``docs/tenancy.md``
+CLI_TENANTS = [
+    {"name": "search-hot", "n": 600, "dim": 32, "nprobe": 8,
+     "scenario": "trace", "rate_qps": 250, "slo_ms": 60, "weight": 2.0},
+    {"name": "analytics", "n": 1200, "dim": 32, "nprobe": 64,
+     "scenario": "burst", "burst_factor": 10, "slo_ms": 150, "weight": 1.0},
+]
+#: the reference CLI's virtual queries/s for ``--index graph --hedge
+#: --replicas 2`` (``python -m repro.fleet``, the same flags)
+GRAPH_CLI_QPS = 60.3254
+
+
 def fleet_cli(report) -> None:
-    """``python -m repro_torch.fleet`` as a user runs it on the card: the
-    cluster fleet twice (the JSON, ``meta`` aside, must be the same), the
-    same with ``--device cpu`` (printed, not required: near-tie closure
-    pairs may differ), then the graph fleet once."""
+    """``python -m repro_torch.fleet`` as a user runs it on the card, and
+    with ``--device cpu``: the cluster fleet twice (the JSON, ``meta``
+    aside, must be the same) and once on the CPU (printed, not required:
+    near-tie closure pairs may differ); the graph fleet on the card and on
+    the CPU, which must give the reference's virtual queries/s; the write
+    path (``docs/ingest.md``'s command) twice and on the CPU, and the
+    tenants of ``docs/tenancy.md`` with a weighted 4 MiB cache on the card
+    and on the CPU: each must give one JSON."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    tmp = tempfile.TemporaryDirectory()
+    spec = Path(tmp.name) / "tenants.json"
+    spec.write_text(json.dumps(CLI_TENANTS))
+    cpu = ["--device", "cpu"]
     cluster = ["--shards", "4", "--replicas", "2", "--backend", "kernel"]
     graph = ["--index", "graph", "--hedge", "--replicas", "2"]
+    rw = ["--scenario", "rw", "--write-rate", "400", "--n-updates", "200",
+          "--delta-kb", "64"]
+    tenants = ["--tenants", str(spec), "--cache-mb", "4", "--cache-policy",
+               "weighted"]
     runs = {}
     for name, flags in (("cluster", cluster), ("cluster_again", cluster),
-                        ("cluster_cpu", cluster + ["--device", "cpu"]),
-                        ("graph", graph)):
+                        ("cluster_cpu", cluster + cpu),
+                        ("graph", graph), ("graph_cpu", graph + cpu),
+                        ("rw", rw), ("rw_again", rw), ("rw_cpu", rw + cpu),
+                        ("tenants", tenants), ("tenants_cpu", tenants + cpu)):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.fleet", "--compact", *flags],
@@ -1080,18 +1319,40 @@ def fleet_cli(report) -> None:
         out.pop("meta", None)
         runs[name] = json.dumps(out, sort_keys=True)
         rep = out["report"]
-        report.setdefault("fleet_cli", {})[name] = {
+        qps = rep.get("qps", rep.get("aggregate_goodput_qps"))
+        p99 = rep.get("p99_latency_s",
+                      {t["name"]: t["p99_latency_s"] for t in rep.get("tenants", [])})
+        r = report.setdefault("fleet_cli", {})[name] = {
             "flags": flags, "wall_s": wall, "recall": out["recall"],
-            "qps": rep["qps"], "p99_s": rep["p99_latency_s"]}
+            "qps": qps, "p99_s": p99}
+        if "ingest" in rep:
+            r["ingest"] = {k: rep["ingest"][k] for k in (
+                "ops_delivered", "flushes", "lists_rewritten",
+                "write_amplification")}
         print(f"fleet CLI {name} ({' '.join(flags)}): recall {out['recall']}, "
-              f"virtual {rep['qps']} queries/s, p99 {rep['p99_latency_s']} s, "
-              f"{wall:.3f} s wall")
+              f"virtual {qps} queries/s{' (aggregate goodput)' if 'tenants' in rep else ''}, "
+              f"p99 {p99} s, {wall:.3f} s wall")
+    tmp.cleanup()
     require(runs["cluster"] == runs["cluster_again"],
             "the fleet CLI's cluster JSON differs between two runs on the card")
     same_cpu = runs["cluster"] == runs["cluster_cpu"]
     report["fleet_cli"]["cluster_equals_cpu"] = same_cpu
     print(f"fleet CLI: two cluster runs on the card identical; equal to "
           f"--device cpu: {same_cpu}")
+    g = report["fleet_cli"]
+    print(f"fleet CLI graph: {g['graph_cpu']['qps']} virtual queries/s with "
+          f"--device cpu (the reference's {GRAPH_CLI_QPS}), {g['graph']['qps']} "
+          f"on the card; JSON equal: {runs['graph'] == runs['graph_cpu']}")
+    require(g["graph_cpu"]["qps"] == GRAPH_CLI_QPS,
+            f"the graph CLI with --device cpu gives {g['graph_cpu']['qps']} "
+            f"virtual queries/s, not the reference's {GRAPH_CLI_QPS}")
+    require(runs["rw"] == runs["rw_again"] == runs["rw_cpu"],
+            "the fleet CLI's rw JSON differs between two runs on the card or "
+            "from --device cpu")
+    require(runs["tenants"] == runs["tenants_cpu"],
+            "the fleet CLI's --tenants JSON differs from --device cpu")
+    print("fleet CLI: rw identical twice on the card and on the CPU; "
+          "--tenants identical on the card and on the CPU")
 
 
 if __name__ == "__main__":

@@ -16,14 +16,15 @@ Storage layout: one block per node holding the full-precision vector and
 the padded adjacency list, rounded up to ``sector_bytes`` (4KB).
 
 Memory-resident metadata: PQ codes of every vector + codebooks (paper
-Table 3 "PQ dim."), the medoid/entry point; the index also keeps a device
-copy of the codes.
+Table 3 "PQ dim."), the medoid/entry point.
 
 Search: iterative best-first traversal with beamwidth W (Alg 1 + DiskANN's
 multi-vector extraction).  ``search_plan`` is the reference's numpy
 candidate bookkeeping line for line; only the query's ADC table and the
 ADC lookups move to the index's device, where each lookup is one launch of
-the ``adc_lookup`` kernel on the codes of the round's new neighbours.
+the ``adc_lookup`` kernel on the codes of the round's new neighbours
+(gathered on the host, so a write path that grows ``meta.codes`` is seen
+at once).
 """
 from __future__ import annotations
 
@@ -208,8 +209,12 @@ class GraphIndex:
         self.meta = meta
         self.store = store
         self.device = resolve_device(device)
-        self.codes_dev = torch.from_numpy(
-            np.ascontiguousarray(meta.codes)).to(self.device)
+
+    @property
+    def codes_dev(self) -> torch.Tensor:
+        """A device copy of every PQ code, made on each access."""
+        return torch.from_numpy(
+            np.ascontiguousarray(self.meta.codes)).to(self.device)
 
     # ------------------------------------------------------------- build --
     @staticmethod
@@ -302,11 +307,13 @@ class GraphIndex:
 
     # ------------------------------------------------------------ search --
     def _adc(self, ids: np.ndarray, table_dev: torch.Tensor) -> np.ndarray:
-        """ADC distances (len(ids),) f32 of nodes ``ids``: one lookup on the
-        index's device over the codes those ids gather."""
-        idx = torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int64))
-        codes = self.codes_dev[idx.to(self.device)]
-        return self.meta.pq.adc_lookup_dev(codes, table_dev).cpu().numpy()
+        """ADC distances (len(ids),) f32 of nodes ``ids``: the host gathers
+        their codes from ``meta.codes`` (which the write path grows and
+        rewrites in place), one copy takes them to the index's device, and
+        one lookup runs there."""
+        codes = torch.from_numpy(self.meta.codes[np.asarray(ids, np.int64)])
+        return self.meta.pq.adc_lookup_dev(codes.to(self.device),
+                                           table_dev).cpu().numpy()
 
     def search_plan(
         self, q: np.ndarray, params: SearchParams,

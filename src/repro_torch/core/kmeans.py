@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.distances import np_sq_l2
+from repro_torch.core.threefry import pq_init_idx
 from repro_torch.kernels.ref import full_f32_matmul
 
 
@@ -103,7 +104,7 @@ def kmeans_np(
 
 def kmeans_batched(
     x: torch.Tensor, k: int, iters: int = 10, *,
-    init_idx=None, generator: torch.Generator | None = None,
+    init_idx=None, seed: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched Lloyd.  x: (M, N, D) -> (centroids (M, k, D) f32, assign (M, N)).
 
@@ -115,18 +116,15 @@ def kmeans_batched(
     an empty cluster keeps its centroid.  ``assign`` is the last step's
     assignment (made against the centroids before that step's update).
 
-    The reference draws its init rows with ``jax.random.choice``, which
-    torch cannot reproduce: ``init_idx`` (M, k) gives them explicitly;
-    otherwise each subproblem takes the first k of a ``torch.randperm``
-    drawn from ``generator`` (on the CPU, so a seed draws the same rows on
-    any device).
+    ``init_idx`` (M, k) gives the init rows explicitly; otherwise they are
+    the reference's ``jax.random`` draw from ``PRNGKey(seed)``, recomputed
+    in numpy by :func:`repro_torch.core.threefry.pq_init_idx`, so a seed
+    picks the same rows as the reference on any device.
     """
     m, n, d = x.shape
     k = min(k, n)
     if init_idx is None:
-        g = generator if generator is not None else torch.Generator().manual_seed(0)
-        init_idx = torch.stack([torch.randperm(n, generator=g)[:k]
-                                for _ in range(m)])
+        init_idx = pq_init_idx(seed, m, n, k)
     if not isinstance(init_idx, torch.Tensor):
         init_idx = torch.from_numpy(np.array(init_idx, dtype=np.int64))
     init_idx = init_idx.long().to(x.device)

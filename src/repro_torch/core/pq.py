@@ -121,9 +121,9 @@ def train_pq(
     dim is zero-padded up to a multiple of m (DiskANN does the same).  The
     sample is the reference's numpy draw; the codebooks come from
     :func:`kmeans_batched` on ``device``, initialised from ``init_idx``
-    (m, min(256, n)) when given, else from a ``torch.Generator`` seeded
-    with ``seed`` (the reference's ``jax.random`` draw has no torch
-    counterpart).
+    (m, min(256, n)) when given, else from the reference's ``jax.random``
+    draw for ``seed`` (recomputed in numpy), so a seed gives the
+    reference's codebooks up to the f32 rounding of the Lloyd steps.
     """
     dev = resolve_device(device)
     x = np.asarray(x, dtype=np.float32)
@@ -139,7 +139,7 @@ def train_pq(
     xs = torch.from_numpy(
         np.ascontiguousarray(x.reshape(n, m, dsub).transpose(1, 0, 2))).to(dev)
     cb, _ = kmeans_batched(xs, KSUB, iters=iters, init_idx=init_idx,
-                           generator=torch.Generator().manual_seed(seed))
+                           seed=seed)
     cb = cb.cpu().numpy().astype(np.float32)
     if cb.shape[1] < KSUB:  # tiny datasets: pad codebook by repetition
         reps = -(-KSUB // cb.shape[1])

@@ -23,11 +23,14 @@ Examples:
     # let the autoscaler defend the SLO through a 4x burst
     python -m repro_torch.fleet --scenario burst --rate 150 --duration 2 \\
         --autoscale --slo-ms 80
+    # read-write mix: live inserts/deletes + background compaction
+    python -m repro_torch.fleet --scenario rw --write-rate 400 \\
+        --n-updates 200 --delta-kb 64
+    # multi-tenant: N workloads sharing the fleet's caches + bandwidth
+    python -m repro_torch.fleet --tenants tenants.json --cache-mb 4 \\
+        --cache-policy weighted
     # on a host without a card: the plain PyTorch versions
     python -m repro_torch.fleet --device cpu
-
-``--scenario rw`` (the write path) and ``--tenants`` (multi-tenancy) are
-not ported yet and end in a parser error.
 
 The port's own copy of ``repro.fleet.__main__``, imports rewritten to
 ``repro_torch``; ``tests/test_torch_fleet.py`` holds the two to the same
@@ -39,11 +42,11 @@ import argparse
 import sys
 import time
 
-from repro_torch.cli import (add_common_args, add_exec_args,
-                             add_monitor_args, add_obs_args,
-                             add_scenario_args, autoscale_from_args,
-                             emit_json, emit_obs, exec_fields_from_args,
-                             faults_from_args, monitor_from_args,
+from repro_torch.cli import (add_common_args, add_exec_args, add_monitor_args,
+                             add_obs_args, add_scenario_args,
+                             autoscale_from_args, emit_json, emit_obs,
+                             exec_fields_from_args, faults_from_args,
+                             ingest_from_args, monitor_from_args,
                              pricebook_from_args, scenario_from_args,
                              tracer_from_args)
 from repro_torch.core.cluster_index import ClusterIndex
@@ -109,8 +112,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "the plain PyTorch versions)")
     t = p.add_argument_group("tenancy")
     t.add_argument("--tenants", default=None, metavar="SPEC.JSON",
-                   help="multi-tenancy is not ported yet: ends in a "
-                        "parser error")
+                   help="serve N tenant workloads (JSON list of tenant "
+                        "specs; see docs/tenancy.md) over this one fleet")
+    t.add_argument("--cache-policy", default="shared",
+                   choices=["shared", "static", "weighted"],
+                   help="how the per-instance cache budget is split "
+                        "across tenants (--tenants runs only)")
+    t.add_argument("--no-solo", action="store_true",
+                   help="skip the per-tenant solo baseline runs (no "
+                        "interference ratios in the report)")
     add_exec_args(p)
     add_scenario_args(p)
     add_obs_args(p)
@@ -159,6 +169,125 @@ def validated_faults(args):
     return faults
 
 
+#: single-tenant workload flags that tenant specs own entirely — their
+#: appearing alongside --tenants is a user error, not a silent no-op
+#: (defaults come from the parser itself, so they can never drift)
+_TENANT_OWNED_FLAGS = (
+    "scenario", "rate", "duration", "arrivals", "slo_ms",
+    "burst_factor", "burst_start", "burst_len", "trace_zipf_a",
+    "write_rate", "n_updates", "delete_frac",
+    "delta_kb", "flush_frac", "compaction_par",
+    "index", "n", "dim", "queries", "k", "nprobe", "search_len",
+    "beamwidth",
+)
+
+
+def run_tenancy(args, storage) -> int:
+    """The --tenants path: N workloads over one shared fleet."""
+    from repro_torch.core.flat import exact_topk
+    from repro_torch.tenancy import (Tenant, load_tenant_specs,
+                                     materialize_tenant, measure_interference,
+                                     run_tenant_fleet)
+    parser = build_parser()
+    dead = [name for name in _TENANT_OWNED_FLAGS
+            if getattr(args, name) != parser.get_default(name)]
+    if dead:
+        parser.error(
+            f"--tenants runs take every workload axis from the tenant "
+            f"spec file; --{'/--'.join(d.replace('_', '-') for d in dead)} "
+            f"would be ignored — set it per tenant in the JSON instead")
+    if args.cache_policy != "shared" and args.cache_mb <= 0:
+        parser.error(
+            f"--cache-policy {args.cache_policy} needs a cache budget "
+            f"(--cache-mb > 0); with no cache there is nothing to "
+            f"partition")
+    try:
+        specs = load_tenant_specs(args.tenants)
+    except (OSError, ValueError) as e:
+        build_parser().error(f"--tenants: {e}")
+    faults = validated_faults(args)
+    if args.autoscale:
+        build_parser().error(
+            "--autoscale composes with --tenants only through a fleet-"
+            "wide SLO, which multi-tenant runs don't have (each tenant "
+            "carries its own); drop one of the two flags")
+    cfg = fleet_config_from_args(args, storage)
+    device = resolve_device(args.device)
+
+    def make_tenants() -> list[Tenant]:
+        return [materialize_tenant(s, base_seed=cfg.seed, tid=i,
+                                   device=device)
+                for i, s in enumerate(specs)]
+
+    # ground truth only needs each tenant's data/queries/update stream,
+    # which the serving runs leave intact — keep the first materialised
+    # list instead of paying the index builds a further time for recall
+    first: list[Tenant] = []
+
+    def tenants_once() -> list[Tenant]:
+        made = make_tenants()
+        if not first:
+            first.extend(made)
+        return made
+
+    tracer = tracer_from_args(args)
+    monitor = monitor_from_args(args, parser)
+    pricebook = pricebook_from_args(args, parser)
+    if monitor is not None and monitor.recall_target is not None:
+        # live recall needs ground truth up front; tenant name -> gt
+        import dataclasses as _dc
+        gt_map = {}
+        for t in tenants_once():
+            if t.updates is None:
+                gt_map[t.spec.name] = exact_topk(t.data, t.queries,
+                                                 t.spec.k, device=device)[0]
+        monitor = _dc.replace(monitor, gt_ids=gt_map)
+    t0 = time.perf_counter()
+    if args.no_solo or faults is not None:
+        # interference baselines are only meaningful on a healthy fleet
+        rep = run_tenant_fleet(tenants_once(), cfg, args.cache_policy,
+                               faults=faults,
+                               series_dt=args.series_dt, tracer=tracer,
+                               monitor=monitor, pricebook=pricebook,
+                               explain=bool(args.explain),
+                               mrc=bool(args.mrc))
+    else:
+        rep = measure_interference(tenants_once, cfg, args.cache_policy,
+                                   series_dt=args.series_dt,
+                                   tracer=tracer, monitor=monitor,
+                                   pricebook=pricebook,
+                                   explain=bool(args.explain),
+                                   mrc=bool(args.mrc))
+    wall_s = time.perf_counter() - t0
+    if rep.showback is not None:
+        from repro_torch.obs import format_showback
+        print(format_showback(rep.showback), file=sys.stderr)
+    from repro_torch.obs import run_manifest
+    out = dict(config=cfg.to_dict(), cache_policy=args.cache_policy,
+               tenant_specs=[s.to_dict() for s in specs],
+               report=rep.summary(),
+               meta=run_manifest(seed=args.seed, config=cfg.to_dict(),
+                                 wall_s=wall_s))
+    emit_obs(out, args, tracer)
+    if faults is not None:
+        out["fault_schedule"] = faults.to_dicts()
+    if not args.no_recall:
+        recalls = {}
+        for sl, t in zip(rep.tenants, first):
+            if t.updates is not None:
+                from repro_torch.ingest.stream import churn_ground_truth
+                gt = churn_ground_truth(t.data, queries=t.queries,
+                                        k=t.spec.k, stream=t.updates,
+                                        device=device)
+            else:
+                gt, _ = exact_topk(t.data, t.queries, t.spec.k,
+                                   device=device)
+            recalls[sl.name] = round(sl.recall_against(gt), 4)
+        out["recall"] = recalls
+    emit_json(out, args)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -166,11 +295,7 @@ def main(argv: list[str] | None = None) -> int:
     except KeyError as e:
         build_parser().error(str(e.args[0]))
     if args.tenants is not None:
-        build_parser().error("--tenants: multi-tenancy (repro.tenancy) is "
-                             "not ported to repro_torch yet")
-    if args.scenario == "rw":
-        build_parser().error("--scenario rw: the write path (repro.ingest) "
-                             "is not ported to repro_torch yet")
+        return run_tenancy(args, storage)
     try:
         scenario = scenario_from_args(args)
         autoscale = autoscale_from_args(args)
@@ -186,8 +311,8 @@ def main(argv: list[str] | None = None) -> int:
     spec = DatasetSpec("fleet-analog", args.dim, "float32", args.n,
                        args.queries, n_clusters=max(8, min(64, args.n // 16)),
                        intrinsic_dim=min(32, args.dim), seed=args.seed)
-    device = resolve_device(args.device)
     data, queries = make_dataset(spec)
+    device = resolve_device(args.device)
     if args.index == "cluster":
         index = ClusterIndex.build(data, ClusterIndexParams(
             kmeans_iters=4, seed=args.seed), device=device)
@@ -204,6 +329,14 @@ def main(argv: list[str] | None = None) -> int:
     cfg = fleet_config_from_args(args, storage)
     arrivals = scenario.make_arrivals(len(queries), cfg.concurrency,
                                       seed=args.seed)
+    updates = None
+    ingest_cfg = None
+    if scenario.kind == "rw":
+        protected = frozenset([index.meta.medoid]) \
+            if args.index == "graph" else None
+        updates = scenario.make_updates(data, seed=args.seed,
+                                        protected=protected)
+        ingest_cfg = ingest_from_args(args)
     # closed-loop sojourns measure drain position, not service time —
     # goodput-vs-SLO is only meaningful for open-loop arrivals (rw runs
     # its queries closed-loop too)
@@ -216,7 +349,16 @@ def main(argv: list[str] | None = None) -> int:
     gt_pre = None
     if monitor is not None:
         import dataclasses as _dc
+        if scenario.kind == "rw":
+            # freshness-lag SLO: alert when updates take longer than
+            # the latency SLO to become visible
+            monitor = _dc.replace(monitor,
+                                  freshness_slo_s=args.slo_ms * 1e-3)
         if monitor.recall_target is not None:
+            if updates is not None:
+                parser.error("--recall-slo needs a pure-query scenario: "
+                             "under churn the ground truth moves with "
+                             "every applied update")
             gt_pre, _ = exact_topk(data, queries, args.k, device=device)
             monitor = _dc.replace(monitor, gt_ids=gt_pre)
     t0 = time.perf_counter()
@@ -224,6 +366,7 @@ def main(argv: list[str] | None = None) -> int:
                        arrivals=arrivals, faults=faults,
                        autoscale=autoscale, slo_s=slo_s,
                        series_dt=args.series_dt,
+                       updates=updates, ingest=ingest_cfg,
                        tracer=tracer, monitor=monitor,
                        pricebook=pricebook,
                        explain=bool(args.explain), mrc=bool(args.mrc))
@@ -239,8 +382,16 @@ def main(argv: list[str] | None = None) -> int:
         out["fault_schedule"] = faults.to_dicts()
     if autoscale is not None:
         out["autoscale_config"] = autoscale.to_dict()
+    if scenario.kind == "rw":
+        out["ingest_config"] = ingest_cfg.to_dict()
+        if updates is not None:
+            out["update_stream"] = updates.to_dict()
     if not args.no_recall:
-        if gt_pre is not None:
+        if updates is not None:
+            from repro_torch.ingest.stream import churn_ground_truth
+            gt = churn_ground_truth(data, queries=queries, k=args.k,
+                                    stream=updates, device=device)
+        elif gt_pre is not None:
             gt = gt_pre
         else:
             gt, _ = exact_topk(data, queries, args.k, device=device)

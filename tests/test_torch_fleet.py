@@ -52,7 +52,10 @@ def _pkg(name: str) -> SimpleNamespace:
     return SimpleNamespace(fleet=m("fleet"), arrivals=m("sim.arrivals"),
                            faults=m("sim.faults"), autoscale=m("sim.autoscale"),
                            obs=m("obs"), spec=m("storage.spec"),
-                           types=m("core.types"))
+                           types=m("core.types"), ingest=m("ingest"),
+                           ci=m("core.cluster_index"),
+                           gi=m("core.graph_index"),
+                           dev={} if name == "repro" else {"device": "cpu"})
 
 
 REF, PORT = _pkg("repro"), _pkg("repro_torch")
@@ -288,7 +291,11 @@ COPIED = [
     "exec/backend.py", "exec/__init__.py", "exec/table.py",
     "fleet/partition.py", "fleet/server.py", "fleet/metrics.py",
     "fleet/router.py", "fleet/__init__.py", "fleet/__main__.py",
-    "tuning/space.py", "cli.py",
+    "tuning/space.py", "cli.py", "storage/object_store.py",
+    "ingest/memtable.py", "ingest/stream.py", "ingest/metrics.py",
+    "ingest/mutable.py", "ingest/compaction.py", "ingest/__init__.py",
+    "tenancy/spec.py", "tenancy/policy.py", "tenancy/metrics.py",
+    "tenancy/fleet.py", "tenancy/__init__.py",
 ]
 
 #: module -> (top-level definitions of the reference that the port leaves
@@ -297,111 +304,97 @@ COPIED = [
 #: reference's and "+" the port's, in order)
 ALLOWED = {
     "fleet/__main__.py": (
-        {"_TENANT_OWNED_FLAGS", "run_tenancy"},
-        "--device picks where the index build and the ground truth run; "
-        "--tenants and --scenario rw end in a parser error until "
-        "multi-tenancy and the write path are ported, so the tenancy path, "
-        "its flags --cache-policy and --no-solo, and the rw branches are gone",
+        set(),
+        "--device picks where the index builds (the tenants' too) and the "
+        "exact and churned ground truths run",
         [
-            '-from repro_torch.cli import add_common_args, add_exec_args, '
-            'add_monitor_args, add_obs_args, add_scenario_args, '
-            'autoscale_from_args, emit_json, emit_obs, exec_fields_from_args, '
-            'faults_from_args, ingest_from_args, monitor_from_args, '
-            'pricebook_from_args, scenario_from_args, tracer_from_args',
-            '+from repro_torch.cli import add_common_args, add_exec_args, '
-            'add_monitor_args, add_obs_args, add_scenario_args, '
-            'autoscale_from_args, emit_json, emit_obs, exec_fields_from_args, '
-            'faults_from_args, monitor_from_args, pricebook_from_args, '
-            'scenario_from_args, tracer_from_args',
             '+from repro_torch.device import resolve_device',
             "-    p = argparse.ArgumentParser(prog='python -m repro.fleet', "
             "description='Serve a synthetic workload across a sharded, "
-            'replicated fleet and report tail latency, balance, hedge and shed '
-            'rates — under closed-loop or open-loop (poisson/burst/trace) '
-            "arrivals, with optional fault injection and SLO autoscaling.')",
+            'replicated fleet and report tail latency, balance, hedge and '
+            'shed rates — under closed-loop or open-loop '
+            '(poisson/burst/trace) arrivals, with optional fault injection '
+            "and SLO autoscaling.')",
             "+    p = argparse.ArgumentParser(prog='python -m "
-            "repro_torch.fleet', description='Serve a synthetic workload across"
-            ' a sharded, replicated fleet and report tail latency, balance, '
-            'hedge and shed rates — under closed-loop or open-loop '
-            '(poisson/burst/trace) arrivals, with optional fault injection and '
-            "SLO autoscaling.')",
+            "repro_torch.fleet', description='Serve a synthetic workload "
+            'across a sharded, replicated fleet and report tail latency, '
+            'balance, hedge and shed rates — under closed-loop or open-loop '
+            '(poisson/burst/trace) arrivals, with optional fault injection '
+            "and SLO autoscaling.')",
             '+    p.add_argument(\'--device\', default=None, help="where the '
             'index build and the exact ground truth run, and where a graph '
             'index keeps its PQ codes (default: cuda; raises without a card; '
             '\'cpu\' runs the plain PyTorch versions)")',
-            "-    t.add_argument('--tenants', default=None, "
-            "metavar='SPEC.JSON', help='serve N tenant workloads (JSON list of "
-            "tenant specs; see docs/tenancy.md) over this one fleet')",
-            "-    t.add_argument('--cache-policy', default='shared', "
-            "choices=['shared', 'static', 'weighted'], help='how the "
-            'per-instance cache budget is split across tenants (--tenants runs '
-            "only)')",
-            "-    t.add_argument('--no-solo', action='store_true', help='skip "
-            'the per-tenant solo baseline runs (no interference ratios in the '
-            "report)')",
-            "+    t.add_argument('--tenants', default=None, "
-            "metavar='SPEC.JSON', help='multi-tenancy is not ported yet: ends "
-            "in a parser error')",
-            '-        return run_tenancy(args, storage)',
-            "+        build_parser().error('--tenants: multi-tenancy "
-            "(repro.tenancy) is not ported to repro_torch yet')",
-            "+    if args.scenario == 'rw':",
-            "+        build_parser().error('--scenario rw: the write path "
-            "(repro.ingest) is not ported to repro_torch yet')",
+            '+    device = resolve_device(args.device)',
+            '-        return [materialize_tenant(s, base_seed=cfg.seed, '
+            'tid=i) for i, s in enumerate(specs)]',
+            '+        return [materialize_tenant(s, base_seed=cfg.seed, '
+            'tid=i, device=device) for i, s in enumerate(specs)]',
+            '-                gt_map[t.spec.name] = exact_topk(t.data, '
+            't.queries, t.spec.k)[0]',
+            '+                gt_map[t.spec.name] = exact_topk(t.data, '
+            't.queries, t.spec.k, device=device)[0]',
+            '-                gt = churn_ground_truth(t.data, '
+            'queries=t.queries, k=t.spec.k, stream=t.updates)',
+            '+                gt = churn_ground_truth(t.data, '
+            'queries=t.queries, k=t.spec.k, stream=t.updates, device=device)',
+            '-                gt, _ = exact_topk(t.data, t.queries, t.spec.k)',
+            '+                gt, _ = exact_topk(t.data, t.queries, '
+            't.spec.k, device=device)',
             '+    device = resolve_device(args.device)',
             '-        index = ClusterIndex.build(data, '
             'ClusterIndexParams(kmeans_iters=4, seed=args.seed))',
             '+        index = ClusterIndex.build(data, '
-            'ClusterIndexParams(kmeans_iters=4, seed=args.seed), device=device)',
+            'ClusterIndexParams(kmeans_iters=4, seed=args.seed), '
+            'device=device)',
             '-        index = GraphIndex.build(data, GraphIndexParams(R=24, '
             'L_build=48, build_passes=1, pq_dims=default_pq_dims(args.dim), '
             'seed=args.seed))',
             '+        index = GraphIndex.build(data, GraphIndexParams(R=24, '
             'L_build=48, build_passes=1, pq_dims=default_pq_dims(args.dim), '
             'seed=args.seed), device=device)',
-            '-    updates = None',
-            '-    ingest_cfg = None',
-            "-    if scenario.kind == 'rw':",
-            '-        protected = frozenset([index.meta.medoid]) if args.index '
-            "== 'graph' else None",
-            '-        updates = scenario.make_updates(data, seed=args.seed, '
-            'protected=protected)',
-            '-        ingest_cfg = ingest_from_args(args)',
-            "-        if scenario.kind == 'rw':",
-            '-            monitor = _dc.replace(monitor, '
-            'freshness_slo_s=args.slo_ms * 0.001)',
-            '-            if updates is not None:',
-            "-                parser.error('--recall-slo needs a pure-query "
-            'scenario: under churn the ground truth moves with every applied '
-            "update')",
             '-            gt_pre, _ = exact_topk(data, queries, args.k)',
             '+            gt_pre, _ = exact_topk(data, queries, args.k, '
             'device=device)',
-            '-    report = run_fleet(index, queries, params, cfg, '
-            'arrivals=arrivals, faults=faults, autoscale=autoscale, '
-            'slo_s=slo_s, series_dt=args.series_dt, updates=updates, '
-            'ingest=ingest_cfg, tracer=tracer, monitor=monitor, '
-            'pricebook=pricebook, explain=bool(args.explain), '
-            'mrc=bool(args.mrc))',
-            '+    report = run_fleet(index, queries, params, cfg, '
-            'arrivals=arrivals, faults=faults, autoscale=autoscale, '
-            'slo_s=slo_s, series_dt=args.series_dt, tracer=tracer, '
-            'monitor=monitor, pricebook=pricebook, explain=bool(args.explain), '
-            'mrc=bool(args.mrc))',
-            "-    if scenario.kind == 'rw':",
-            "-        out['ingest_config'] = ingest_cfg.to_dict()",
-            '-        if updates is not None:',
-            "-            out['update_stream'] = updates.to_dict()",
-            '-        if updates is not None:',
-            '-            from repro_torch.ingest.stream import '
-            'churn_ground_truth',
             '-            gt = churn_ground_truth(data, queries=queries, '
             'k=args.k, stream=updates)',
-            '-        elif gt_pre is not None:',
-            '+        if gt_pre is not None:',
+            '+            gt = churn_ground_truth(data, queries=queries, '
+            'k=args.k, stream=updates, device=device)',
             '-            gt, _ = exact_topk(data, queries, args.k)',
             '+            gt, _ = exact_topk(data, queries, args.k, '
             'device=device)',
+        ]),
+    "ingest/stream.py": (
+        set(),
+        "churn_ground_truth takes the device of its exact top-k (default: "
+        "the card)",
+        [
+            '-def churn_ground_truth(data: np.ndarray, stream: UpdateStream, '
+            'queries: np.ndarray, k: int) -> np.ndarray:',
+            '+def churn_ground_truth(data: np.ndarray, stream: UpdateStream, '
+            'queries: np.ndarray, k: int, device=None) -> np.ndarray:',
+            '-    idx, _ = exact_topk(corpus, queries, k)',
+            '+    idx, _ = exact_topk(corpus, queries, k, device=device)',
+        ]),
+    "tenancy/fleet.py": (
+        set(),
+        "materialize_tenant takes the device of the tenant's index build "
+        "(default: the card)",
+        [
+            '-def materialize_tenant(spec: TenantSpec, base_seed: int=0, '
+            'tid: int=0) -> Tenant:',
+            '+def materialize_tenant(spec: TenantSpec, base_seed: int=0, '
+            'tid: int=0, device=None) -> Tenant:',
+            '-        index = ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed))',
+            '+        index = ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed), device=device)',
+            '-        index = GraphIndex.build(data, GraphIndexParams(R=24, '
+            'L_build=48, build_passes=1, pq_dims=default_pq_dims(spec.dim), '
+            'seed=seed))',
+            '+        index = GraphIndex.build(data, GraphIndexParams(R=24, '
+            'L_build=48, build_passes=1, pq_dims=default_pq_dims(spec.dim), '
+            'seed=seed), device=device)',
         ]),
     "exec/__init__.py": (
         set(),
@@ -550,17 +543,43 @@ def test_reference_table_prices_the_same_in_the_port(work):
                                 adc_batch=ab))
 
 
-def test_fleet_updates_need_the_write_path():
-    """The write path is not ported: a caller who passes an update stream
-    (here the reference's) gets the missing module, not a silent
-    read-only run.  A stop-gap: porting ``ingest/`` makes the copied
-    branches live and this a parity test."""
-    from repro.ingest.stream import synth_updates
-    from repro_torch.fleet import FleetConfig, run_fleet
-    data, queries = make_dataset(scaled(DEEP_ANALOG, 300, 4))
-    index = ClusterIndex.build(data, ClusterIndexParams(kmeans_iters=2, seed=0),
-                               device="cpu")
-    updates = synth_updates(data, rate_qps=100.0, n_updates=8, seed=0)
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.ingest"):
-        run_fleet(index, queries, PORT.types.SearchParams(k=5, nprobe=4),
-                  FleetConfig(n_shards=1, replication=1), updates=updates)
+@pytest.mark.parametrize("kind", ["cluster", "graph"])
+def test_fleet_updates_need_the_write_path(kind):
+    """``run_fleet(updates=...)`` runs the port's write path: on the
+    port's own build of the same data, the reference's update stream gives
+    the reference's report, ingest accounting included, and the same ids
+    (graph distances within the ADC tolerance)."""
+    data, queries = make_dataset(scaled(DEEP_ANALOG, 600, 16))
+    reps = []
+    for P in (REF, PORT):
+        if kind == "cluster":
+            index = P.ci.ClusterIndex.build(
+                data, P.types.ClusterIndexParams(kmeans_iters=2, seed=0),
+                **P.dev)
+            params = P.types.SearchParams(k=5, nprobe=4)
+            protected = None
+        else:
+            index = P.gi.GraphIndex.build(
+                data, P.types.GraphIndexParams(R=16, L_build=24,
+                                               build_passes=1, pq_dims=16,
+                                               seed=0), **P.dev)
+            params = P.types.SearchParams(k=5, search_len=16, beamwidth=4)
+            protected = frozenset([index.meta.medoid])
+        updates = P.ingest.synth_updates(data, rate_qps=400.0, n_updates=60,
+                                    delete_frac=0.3, seed=0,
+                                    protected=protected)
+        reps.append(P.fleet.run_fleet(
+            index, queries, params,
+            P.fleet.FleetConfig(n_shards=2, replication=2, concurrency=4,
+                                seed=1),
+            updates=updates,
+            ingest=P.ingest.IngestConfig(delta_cap_bytes=4096)))
+    want, got = reps
+    assert got.ingest is not None and got.ingest["ops_delivered"] >= 60
+    assert got.ingest["flushes"] > 0
+    assert got.summary() == want.summary()
+    for a, b in zip(got.records, want.records):
+        assert (a.qid, a.start_t, a.end_t) == (b.qid, b.start_t, b.end_t)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=ADC_RTOL,
+                                   atol=ADC_ATOL)

@@ -5,8 +5,9 @@ against the JAX package's.
   ``_greedy_search_build`` (torch) and ``_robust_prune`` (numpy), with
   integer-valued vectors so every distance is exact;
 * ``build`` on integer-valued data gives the reference's adjacency, medoid
-  and node blocks (PQ training differs: the reference draws its k-means
-  init with ``jax.random``);
+  and node blocks; on deep-analog data the port's own build gives the
+  reference's PQ codebooks (f32 rtol 1e-5: the port takes the reference's
+  ``jax.random`` k-means init draw), codes, adjacency and search ids;
 * ``search`` on a converted reference index gives the reference's ids and
   metrics for every query (deep-analog, n = 2000, as test_graph_index.py);
 * ``tests/test_graph_index.py``'s properties on the port's own build.
@@ -139,6 +140,25 @@ def test_search_on_converted_index_gives_reference_ids(deep, search_len,
         for f in ("roundtrips", "requests", "bytes_read", "dist_comps",
                   "pq_dist_comps"):
             assert getattr(got.metrics, f) == getattr(want.metrics, f), f
+
+
+@pytest.mark.parametrize("search_len", [10, 40])
+def test_port_built_index_gives_the_reference_graph_and_search_ids(
+        deep, search_len):
+    _, queries, _, ref, port = deep
+    np.testing.assert_allclose(port.meta.pq.codebooks, ref.meta.pq.codebooks,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(port.meta.codes, ref.meta.codes)
+    ra, pa = ref.device_arrays(), port.device_arrays()
+    for key in ("vectors", "adjacency", "medoid"):
+        np.testing.assert_array_equal(pa[key], ra[key])
+    for q in queries:
+        want = ref.search(q, JSearch(k=10, search_len=search_len, beamwidth=8))
+        got = port.search(q, SearchParams(k=10, search_len=search_len,
+                                          beamwidth=8))
+        np.testing.assert_array_equal(got.ids, want.ids)
+        assert got.metrics.roundtrips == want.metrics.roundtrips
+        assert got.metrics.pq_dist_comps == want.metrics.pq_dist_comps
 
 
 def test_converted_index_carries_every_node(deep):

@@ -2,10 +2,12 @@
 CPU against the JAX package's.
 
 The reference initialises ``kmeans_batched`` with ``jax.random.choice``;
-the tests recompute those indices with ``jax.random`` from the same key and
-hand them to the port.  On integer-valued data the products are exact, so
-both sides give equal assignments and centroids within 1e-5.  Mirrors
-``tests/test_pq.py``'s properties on the port's own training.
+the port draws the same rows in numpy (``repro_torch.core.threefry``) by
+default, and the tests also hand it indices recomputed with ``jax.random``.
+On integer-valued data the products are exact, so both sides give equal
+assignments and centroids within 1e-5; on random data the codebooks agree
+within f32 rtol 1e-5.  Mirrors ``tests/test_pq.py``'s properties on the
+port's own training.
 """
 import numpy as np
 import pytest
@@ -51,19 +53,45 @@ def test_kmeans_batched_matches_jax_given_its_init(m, n, d, k, iters):
 
 
 def test_kmeans_batched_generator_draw_is_seeded_and_keeps_empty_clusters():
+    """The default draw (the reference's, from ``seed``) repeats."""
     x = np.zeros((2, 40, 3), np.float32)
     x[:, 20:] = 1.0                       # two distinct points, k = 8
     xt = torch.from_numpy(x)
-    c1, a1 = kmeans_batched(xt, 8, iters=3,
-                            generator=torch.Generator().manual_seed(3))
-    c2, a2 = kmeans_batched(xt, 8, iters=3,
-                            generator=torch.Generator().manual_seed(3))
+    c1, a1 = kmeans_batched(xt, 8, iters=3, seed=3)
+    c2, a2 = kmeans_batched(xt, 8, iters=3, seed=3)
     assert torch.equal(c1, c2) and torch.equal(a1, a2)
     # every centroid is one of the two points: the ones that lost all
     # members kept their init row
     assert set(np.unique(c1.numpy())) <= {0.0, 1.0}
     with pytest.raises(ValueError):
         kmeans_batched(xt, 8, init_idx=np.zeros((2, 7), np.int64))
+
+
+@pytest.mark.parametrize("m,n,d,k,iters,seed", [(4, 300, 4, 16, 5, 7),
+                                                (3, 50, 2, 64, 3, 0),
+                                                (2, 1000, 8, 256, 4, 2**31 + 3)])
+def test_kmeans_batched_default_draw_is_the_reference_draw(m, n, d, k, iters,
+                                                           seed):
+    x = _int_data((m, n, d), seed=n)
+    cj, aj = jkm.kmeans_batched(jax.random.PRNGKey(seed), jnp.asarray(x), k,
+                                iters=iters)
+    ct, at = kmeans_batched(torch.from_numpy(x), k, iters=iters, seed=seed)
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,dim,m,seed", [(3000, 96, 48, 0), (800, 100, 48, 1),
+                                          (25000, 32, 8, 5)])
+def test_train_pq_default_draw_gives_the_reference_codebooks(n, dim, m, seed):
+    """Random (not integer-valued) rows: the Lloyd steps round in f32 on
+    both sides, so the codebooks agree within f32 rtol 1e-5 and the codes
+    are equal."""
+    x = np.random.default_rng(seed).normal(size=(n, dim)).astype(np.float32)
+    ref = jpq.train_pq(x, m, iters=6, seed=seed)
+    got = train_pq(x, m, iters=6, seed=seed, device="cpu")
+    np.testing.assert_allclose(got.codebooks, ref.codebooks, rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.encode(x[:500]), ref.encode(x[:500]))
 
 
 @pytest.mark.parametrize("n,dim,m,sample", [(600, 16, 8, 500),

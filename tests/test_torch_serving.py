@@ -3,11 +3,13 @@ package's.
 
 * ``python -m repro_torch.fleet --device cpu`` prints the reference CLI's
   JSON for the same flags, once the ``meta`` block (wall-clock provenance)
-  is removed;
+  is removed: the cluster fleet under every scenario, the write path
+  (``--scenario rw``, the command of ``docs/ingest.md``), multi-tenancy
+  (``--tenants`` with the ``tenants.json`` of ``docs/tenancy.md``) and the
+  graph fleet on the port's own graph build;
 * ``run_workload`` (the single ``QueryEngine``), ``serving.trace``
   record/replay and the event kernel's order and named RNG streams give
-  the reference's results;
-* what is not ported yet (the write path, multi-tenancy) ends in an error.
+  the reference's results.
 
 Every comparison is exact, except graph distances: the ADC sums in
 another order, within the reference's rtol 1e-5 / atol 1e-4.
@@ -48,6 +50,15 @@ def _cli_json(main, argv, capsys) -> dict:
     return out
 
 
+#: the ``tenants.json`` of ``docs/tenancy.md``
+TENANTS = [
+    {"name": "search-hot", "n": 600, "dim": 32, "nprobe": 8,
+     "scenario": "trace", "rate_qps": 250, "slo_ms": 60, "weight": 2.0},
+    {"name": "analytics", "n": 1200, "dim": 32, "nprobe": 64,
+     "scenario": "burst", "burst_factor": 10, "slo_ms": 150, "weight": 1.0},
+]
+
+
 @pytest.mark.parametrize("flags", [
     [],
     ["--scenario", "poisson", "--rate", "300", "--duration", "0.5",
@@ -61,37 +72,26 @@ def _cli_json(main, argv, capsys) -> dict:
      "--slo-ms", "50", "--autoscale"],
     ["--explain", "--mrc", "--monitor", "--recall-slo", "0.5",
      "--pricebook", "default", "--cache-mb", "1"],
+    ["--scenario", "rw", "--write-rate", "400", "--n-updates", "200",
+     "--delta-kb", "64", "--flush-frac", "0.5", "--compaction-par", "1"],
+    ["--tenants", "TENANTS", "--cache-mb", "4", "--cache-policy", "weighted"],
+    ["--tenants", "TENANTS", "--no-solo", "--cache-mb", "4",
+     "--cache-policy", "static"],
+    ["--index", "graph"],
+    ["--index", "graph", "--hedge", "--replicas", "2"],
 ], ids=["default", "poisson", "kernel", "cache_nvme", "fail", "autoscale",
-        "obs"])
-def test_fleet_cli_prints_the_reference_report(flags, capsys):
+        "obs", "rw", "tenants", "tenants_no_solo", "graph", "graph_hedged"])
+def test_fleet_cli_prints_the_reference_report(flags, capsys, tmp_path):
+    if "TENANTS" in flags:
+        spec = tmp_path / "tenants.json"
+        spec.write_text(json.dumps(TENANTS))
+        flags = [str(spec) if f == "TENANTS" else f for f in flags]
     want = _cli_json(jcli.main, flags + ["--compact"], capsys)
     got = _cli_json(pcli.main, flags + ["--compact", "--device", "cpu"], capsys)
     assert got == want
     assert "recall" in got
-
-
-@pytest.mark.parametrize("flags, what", [
-    (["--tenants", "tenants.json"], "multi-tenancy"),
-    (["--scenario", "rw"], "write path"),
-])
-def test_fleet_cli_refuses_what_is_not_ported(flags, what, capsys):
-    with pytest.raises(SystemExit) as e:
-        pcli.main(flags + ["--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert what in err and "not ported" in err
-
-
-
-@pytest.mark.parametrize("flags", [["--cache-policy", "weighted"], ["--no-solo"]],
-                         ids=["cache_policy", "no_solo"])
-def test_fleet_cli_has_no_tenancy_only_flags(flags, capsys):
-    """The flags that only a multi-tenant run reads are not offered until
-    multi-tenancy is ported."""
-    with pytest.raises(SystemExit) as e:
-        pcli.main(flags + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    if flags == ["--index", "graph", "--hedge", "--replicas", "2"]:
+        assert got["report"]["qps"] == 60.3254     # the reference's figure
 
 # ------------------------------------------------- engine and replay --
 
