@@ -62,7 +62,20 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    fleet twice, which must give the same JSON; the graph fleet, which on
    the CPU must give the reference's 60.3254 virtual queries/s; the write
    path (``--scenario rw``) twice and on the CPU, and ``--tenants`` on the
-   card and on the CPU, each of which must give one JSON.
+   card and on the CPU, each of which must give one JSON;
+11. the auto-tuner (``repro_torch.tuning``) at the CLI's defaults (n =
+   1,000,000 screened, dim 960): first ``l2_topk`` at a rung's ground truth
+   (56 x 3,000 x 960, k = 10; each call's device time beside the plain
+   version's and ``cdist`` + ``topk``'s) and at a sweep's closure (1,200
+   points x 256 centroids x 960, k = 8 and 4), and ``adc_lookup`` at m =
+   120 on the direct path (4,096 rows) against their plain versions; then
+   the seven commands of ``docs/tuning.md`` once each on the card, in this
+   process so that the launch counts see the tuner's kernels (the rungs'
+   and sweeps' builds and ground truths, a graph candidate's ADC rounds);
+   ``--budget screen``, the quick index run and ``--tune-window`` again
+   with ``--device cpu`` (the screen, which measures no index, must give
+   the card's JSON); and the quick index run as ``python -m
+   repro_torch.tuning``, which must print one JSON.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -192,27 +205,112 @@ def l2_bound_ms(Q: int, N: int, D: int, out_bytes: int, peaks) -> tuple[float, s
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def queued_ms(fn, reps: int = 20, cycles: int = 200_000_000) -> float | None:
+    """Device time a call of ``fn`` with the host out of the way: a sleep
+    kernel holds the card while the host queues ``reps`` calls, and CUDA
+    events time them as the card runs them back to back (the host's launch
+    cost goes, the gaps between kernels stay).  None when the host took
+    longer to queue the calls than the sleep lasted."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def topk_plan(Q: int, N: int, D: int, k: int) -> str:
-    """The ``l2_topk`` variant and row split the wrapper picks for a shape."""
+    """The ``l2_topk`` variant, row split and resident blocks an SM the
+    wrapper picks for a shape."""
     from repro_torch.kernels import fused_topk
-    v, S, span = fused_topk.plan(Q, N, D, k, torch.cuda.current_device())
+    dev = torch.cuda.current_device()
+    v, S, span = fused_topk.plan(Q, N, D, k, dev)
+    per_sm = fused_topk._blocks_per_sm(fused_topk._lib(), v, D, k, dev)
     name = "wide" if v is fused_topk.WIDE else "narrow"
-    return f"{name} {v.block_q}x{v.block_n}, S={S} ranges of {span} rows"
+    return (f"{name} {v.block_q}x{v.block_n}, S={S} ranges of {span} rows, "
+            f"{per_sm} block(s) an SM")
+
+
+def two_call_topk(q: torch.Tensor, x: torch.Tensor, k: int):
+    """The yardstick for ``l2_topk``: ``torch.cdist`` squared, then
+    ``torch.topk`` (context: no single PyTorch call fuses distance and
+    top-k); run it under ``full_f32_matmul``."""
+    d = torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist")
+    return torch.topk(d * d, k, dim=1, largest=False)
 
 
 def two_call_topk_ms(q: torch.Tensor, x: torch.Tensor, k: int, reps: int) -> float:
-    """Time of the two-call yardstick for ``l2_topk``: ``torch.cdist``
-    squared, then ``torch.topk``, in full f32 (context: no single PyTorch
-    call fuses distance and top-k)."""
+    """Time of the two-call yardstick, in full f32."""
     from repro_torch.kernels.ref import full_f32_matmul
-
-    def run():
-        d = torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist")
-        return torch.topk(d * d, k, dim=1, largest=False)
     with full_f32_matmul():
-        ms = time_ms(run, reps)
+        ms = time_ms(lambda: two_call_topk(q, x, k), reps)
     torch.cuda.empty_cache()
     return ms
+
+
+def topk_case(label: str, q: torch.Tensor, x: torch.Tensor, k: int, peaks,
+              reps: tuple[int, int] = (0, 0), device: bool = False) -> dict:
+    """``l2_topk`` against its plain version on one shape: values within each
+    row's f32 tolerance, ids equal up to near-ties.  With ``reps`` (kernel,
+    plain) it also times the kernel, the plain version and the two-call
+    yardstick in a loop beside the bound and the plan; with ``device`` each
+    of the three calls' device time (``queued_ms``) and the kernel's parts
+    (profiler)."""
+    from repro_torch.kernels import fused_topk
+    from repro_torch.kernels.ref import full_f32_matmul, l2_topk_ref
+
+    (Q, D), N = q.shape, x.shape[0]
+    gv, gi = fused_topk.l2_topk(q, x, k)
+    wv, wi = l2_topk_ref(q, x, k)
+    row_tol = TOL * ((q * q).sum(-1) + (x * x).sum(-1).max()) + 1e-6
+    err = float((gv - wv).abs().max())
+    shape = f"{Q}x{N}x{D} k={k} ({label})"
+    require(bool(((gv - wv).abs() <= row_tol[:, None]).all()),
+            f"l2_topk at {shape}: values err {err}")
+    n_diff, ties = near_tie_rows(gi, wi, q, x, row_tol)
+    require(ties, f"l2_topk at {shape}: ids differ beyond near-ties in "
+            f"{n_diff} rows")
+    out = {"shape": shape, "max_abs_err": err, "rows_differing": n_diff}
+    text = f"{n_diff} of {Q} rows differ, all near-ties; max abs err {err:.3g}"
+    if reps[0]:
+        b_ms, b_by = l2_bound_ms(Q, N, D, 8 * Q * k, peaks)
+        out.update(plan=topk_plan(Q, N, D, k),
+                   ms=time_ms(lambda: fused_topk.l2_topk(q, x, k), reps[0]),
+                   plain_ms=time_ms(lambda: l2_topk_ref(q, x, k), reps[1]),
+                   library_ms=two_call_topk_ms(q, x, k, reps[1]),
+                   bound_ms=b_ms, bound_by=b_by)
+        out["bound_share"] = b_ms / out["ms"]
+        text = (f"({out['plan']}): kernel {out['ms']:.4f} ms, plain "
+                f"{out['plain_ms']:.4f} ms, cdist+topk {out['library_ms']:.4f} "
+                f"ms (two calls), bound {b_ms:.6f} ms ({b_by}), "
+                f"{out['bound_share']:.3f} of it; " + text)
+    if device:
+        # where a call's device time goes (the row-norm pre-pass, the main
+        # kernel, the merge of the S ranges), and each call's device time
+        parts = {name: kernel_device_ms(lambda: fused_topk.l2_topk(q, x, k),
+                                        lambda key, n=name: n in key)[0]
+                 for name in ("row_norms_kernel", "l2_topk_kernel",
+                              "merge_kernel")}
+        with full_f32_matmul():
+            lib_dev = queued_ms(lambda: two_call_topk(q, x, k))
+        out.update(device_ms=queued_ms(lambda: fused_topk.l2_topk(q, x, k)),
+                   device_parts_ms=parts,
+                   plain_device_ms=queued_ms(lambda: l2_topk_ref(q, x, k)),
+                   library_device_ms=lib_dev)
+        text += (f"; device a call (queued behind a sleep): kernel "
+                 f"{out['device_ms']} ms (profiler's parts {json.dumps(parts)}), "
+                 f"plain {out['plain_device_ms']} ms, cdist+topk {lib_dev} ms")
+    print(f"l2_topk {shape} {text}")
+    return out
 
 
 def norm_tol(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -467,21 +565,8 @@ def main(argv=None) -> int:
     # l2_topk at the closure step: 4096 points x L centroids, k = r
     r = min(params.num_replica, L)
     pts = torch.from_numpy(data[:4096].astype(np.float32)).to(dev)
-    gv, gi = fused_topk.l2_topk(pts, cents, r)
-    wv, wi = l2_topk_ref(pts, cents, r)
-    cn_max = (cents * cents).sum(-1).max()
-    row_tol = TOL * ((pts * pts).sum(-1) + cn_max) + 1e-6
-    require(bool(((gv - wv).abs() <= row_tol[:, None]).all()),
-            f"l2_topk values err {(gv - wv).abs().max().item()}")
-    n_diff, ties = near_tie_rows(gi, wi, pts, cents, row_tol)
-    require(ties, f"l2_topk ids differ beyond near-ties in {n_diff} rows")
-    print(f"l2_topk closure shape: {n_diff} of 4096 rows differ, all near-ties")
-    topk_err = float((gv - wv).abs().max())
-    k_ms = time_ms(lambda: fused_topk.l2_topk(pts, cents, r), 10)
-    p_ms = time_ms(lambda: l2_topk_ref(pts, cents, r), 3)
-    lib_ms = two_call_topk_ms(pts, cents, r, 3)
-    b_ms, b_by = l2_bound_ms(4096, L, D, 8 * 4096 * r, peaks)
-    plan = topk_plan(4096, L, D, r)
+    closure_case = topk_case("closure step", pts, cents, r, peaks,
+                             reps=(10, 3))
 
     # closure pairs: kernel vs plain through the build's own rule, on every
     # stride-th chunk of the build's 4096-point chunks
@@ -521,44 +606,30 @@ def main(argv=None) -> int:
     # l2_topk at the ground truth: 512 queries x N points, k=10; ids of
     # exact_topk on 1,024 queries against the plain version
     xs = torch.from_numpy(data).to(dev)
-    n_diff_gt = 0
-    for s in range(0, min(1024, args.queries), 512):
-        gv2, gi2 = fused_topk.l2_topk(qt[s:s + 512], xs, K)
-        wv2, wi2 = l2_topk_ref(qt[s:s + 512], xs, K)
-        q_tol = TOL * ((qt[s:s + 512] ** 2).sum(-1) + (xs * xs).sum(-1).max()) + 1e-6
-        require(bool(((gv2 - wv2).abs() <= q_tol[:, None]).all()),
-                "exact_topk values differ")
-        nd, ties = near_tie_rows(gi2, wi2, qt[s:s + 512], xs, q_tol)
-        require(ties, f"exact_topk ids differ beyond near-ties in {nd} rows")
-        n_diff_gt += nd
-        topk_err = max(topk_err, float((gv2 - wv2).abs().max()))
-    print(f"exact_topk: {n_diff_gt} of 1024 rows differ, all near-ties")
-    gt_ms = time_ms(lambda: fused_topk.l2_topk(qt[:512], xs, K), 5)
-    gt_plain_ms = time_ms(lambda: l2_topk_ref(qt[:512], xs, K), 2)
-    gt_lib_ms = two_call_topk_ms(qt[:512], xs, K, 2)
-    gt_bound, _ = l2_bound_ms(512, args.n, D, 8 * 512 * K, peaks)
-    gt_plan = topk_plan(512, args.n, D, K)
+    cases = [topk_case("exact_topk", qt[s:s + 512], xs, K, peaks,
+                       reps=(0, 0) if s else (5, 2))
+             for s in range(0, min(1024, args.queries), 512)]
+    gt_case = cases[0]
+    topk_err = max(c["max_abs_err"] for c in (closure_case, *cases))
+    print(f"exact_topk: {sum(c['rows_differing'] for c in cases)} of "
+          f"{512 * len(cases)} rows differ, all near-ties")
     kernels.append({
         "name": "l2_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk.py:64",
-        "max_abs_err": topk_err, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "max_abs_err": topk_err, "ms": closure_case["ms"],
+        "plain_ms": closure_case["plain_ms"], "bound_ms": closure_case["bound_ms"],
+        "bound_by": closure_case["bound_by"], "library_ms": closure_case["library_ms"],
         "library": "two calls, context only: torch.cdist(use_mm_for_euclid_dist)"
                    " squared, then torch.topk, in full f32",
-        "shape": f"4096x{L}x{D} k={r} (closure step)", "bound_share": b_ms / k_ms,
-        "plan": plan,
-        "gt_shape": f"512x{args.n}x{D} k={K}", "gt_ms": gt_ms,
-        "gt_plain_ms": gt_plain_ms, "gt_bound_ms": gt_bound,
-        "gt_library_ms": gt_lib_ms, "gt_bound_share": gt_bound / gt_ms,
-        "gt_plan": gt_plan,
+        "shape": closure_case["shape"], "bound_share": closure_case["bound_share"],
+        "plan": closure_case["plan"],
+        "gt_shape": gt_case["shape"], "gt_ms": gt_case["ms"],
+        "gt_plain_ms": gt_case["plain_ms"], "gt_bound_ms": gt_case["bound_ms"],
+        "gt_library_ms": gt_case["library_ms"],
+        "gt_bound_share": gt_case["bound_share"],
+        "gt_plan": gt_case["plan"],
         "checked": "values within 1e-5*(|q|^2+|x|^2); ids equal up to near-ties"})
-    print(f"l2_topk 4096x{L}x{D} k={r} ({plan}): kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms (two calls), bound "
-          f"{b_ms:.4f} ms, {b_ms / k_ms:.3f} of the FP32 bound; 512x{args.n} "
-          f"k={K} ({gt_plan}): kernel {gt_ms:.4f} ms, plain {gt_plain_ms:.4f} ms, "
-          f"cdist+topk {gt_lib_ms:.4f} ms (two calls), bound {gt_bound:.4f} ms, "
-          f"{gt_bound / gt_ms:.3f} of the FP32 bound")
     t = phase("check exact_topk", t)
 
     # batched_topk (coalesced scans) against the per-query oracle: random
@@ -717,6 +788,12 @@ def main(argv=None) -> int:
     # ---- 10. the fleet CLI on the card ---------------------------------
     fleet_cli(report)
     t = phase("fleet CLI on the card", t)
+
+    # ---- 11. the auto-tuner --------------------------------------------
+    tuner_kernels(dev, peaks, kernels, report)
+    t = phase("tuner: kernels at the tuner's shapes", t)
+    tuner(report, launches)
+    t = phase("tuner CLI", t)
 
     for kern in kernels:
         kern["launches"] = sum(c[kern["name"]] for c in launches.values())
@@ -915,16 +992,55 @@ def adc_paths_text(r: dict) -> str:
     return f"{dev}, {r['graph_ms']:.6f} ms a call in a CUDA graph"
 
 
+def adc_case(label, codes, tab, reps, plain_reps, dev, peaks) -> dict:
+    """``adc_lookup`` against its plain version on one shape (int32 codes
+    must give the uint8 bits); times the call in a loop, both paths' kernels,
+    the plain version and ``embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import pq_adc
+    from repro_torch.kernels.ref import adc_lookup_ref
+
+    N, m = codes.shape
+    got = pq_adc.adc_lookup(codes, tab)
+    want = adc_lookup_ref(codes, tab)
+    diff = (got - want).abs()
+    require(bool((diff <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
+            f"adc_lookup {label} {N}x{m}: max abs err {diff.max().item()}")
+    require(torch.equal(pq_adc.adc_lookup(codes.int(), tab), got),
+            f"adc_lookup {label}: int32 codes differ from uint8")
+    offs = codes.long() + 256 * torch.arange(m, device=dev)[None, :]
+    flat = tab.reshape(-1, 1)
+    lib = F.embedding_bag(offs, flat, mode="sum")[:, 0]
+    require(bool(((lib - want).abs() <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
+            f"embedding_bag disagrees with the plain version ({label})")
+    lib_ms = time_ms(lambda: F.embedding_bag(offs, flat, mode="sum"), reps)
+    k_ms = time_ms(lambda: pq_adc.adc_lookup(codes, tab), reps)
+    p_ms = time_ms(lambda: adc_lookup_ref(codes, tab), plain_reps)
+    b_ms = (N * m + 4 * N + 4 * m * 256) / peaks[1] * 1e3
+    # a loop of launches runs at the wrapper's host rate when the kernel
+    # is shorter than that; the profiler gives each path's kernel time,
+    # a CUDA graph of 200 calls the time a call without the host
+    paths = adc_paths(codes, tab, got, label)
+    auto = "direct" if N <= pq_adc.SMALL_N else "staged"
+    print(f"adc_lookup {N}x{m} ({label}): kernel {k_ms:.4f} ms a call "
+          f"in a loop ({auto} path); "
+          + "; ".join(f"{p} {adc_paths_text(r)}" for p, r in paths.items())
+          + f"; plain {p_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms (bytes), max abs err {float(diff.max()):.3g}")
+    return {"shape": f"{N}x{m} ({label})", "ms": k_ms, "path": auto,
+            "device_ms": paths[auto]["device_ms"], "paths": paths,
+            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "max_abs_err": float(diff.max())}
+
+
 def adc_check(index, queries, dev, peaks, report) -> dict:
     """``adc_lookup`` against its plain version at a real search round's
     codes, at the whole code array, and at the GIST shape (m = 120, the
     dynamic shared-memory path); times kernel, plain version and
     ``embedding_bag``."""
-    import torch.nn.functional as F
-
     from repro_torch.core.types import SearchParams
     from repro_torch.kernels import pq_adc
-    from repro_torch.kernels.ref import adc_lookup_ref
 
     # record the lookups of one query's search; keep its largest round
     pq = index.meta.pq
@@ -947,41 +1063,8 @@ def adc_check(index, queries, dev, peaks, report) -> dict:
     cases = (("search round", round_codes, table, 500, 500),
              ("all codes", codes_all, table, 50, 10),
              ("gist m=120", gist_codes, gist_table, 50, 10))
-    shapes, err = [], 0.0
-    for label, codes, tab, reps, plain_reps in cases:
-        N, m = codes.shape
-        got = pq_adc.adc_lookup(codes, tab)
-        want = adc_lookup_ref(codes, tab)
-        diff = (got - want).abs()
-        require(bool((diff <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
-                f"adc_lookup {label} {N}x{m}: max abs err {diff.max().item()}")
-        require(torch.equal(pq_adc.adc_lookup(codes.int(), tab), got),
-                f"adc_lookup {label}: int32 codes differ from uint8")
-        err = max(err, float(diff.max()))
-        offs = codes.long() + 256 * torch.arange(m, device=dev)[None, :]
-        flat = tab.reshape(-1, 1)
-        lib = F.embedding_bag(offs, flat, mode="sum")[:, 0]
-        require(bool(((lib - want).abs() <= ADC_ATOL + ADC_RTOL * want.abs()).all()),
-                f"embedding_bag disagrees with the plain version ({label})")
-        lib_ms = time_ms(lambda: F.embedding_bag(offs, flat, mode="sum"), reps)
-        k_ms = time_ms(lambda: pq_adc.adc_lookup(codes, tab), reps)
-        p_ms = time_ms(lambda: adc_lookup_ref(codes, tab), plain_reps)
-        b_ms = (N * m + 4 * N + 4 * m * 256) / peaks[1] * 1e3
-        # a loop of launches runs at the wrapper's host rate when the kernel
-        # is shorter than that; the profiler gives each path's kernel time,
-        # a CUDA graph of 200 calls the time a call without the host
-        paths = adc_paths(codes, tab, got, label)
-        auto = "direct" if N <= pq_adc.SMALL_N else "staged"
-        shapes.append({"shape": f"{N}x{m} ({label})", "ms": k_ms,
-                       "path": auto, "device_ms": paths[auto]["device_ms"],
-                       "paths": paths, "plain_ms": p_ms,
-                       "library_ms": lib_ms, "bound_ms": b_ms,
-                       "max_abs_err": float(diff.max())})
-        print(f"adc_lookup {N}x{m} ({label}): kernel {k_ms:.4f} ms a call "
-              f"in a loop ({auto} path); "
-              + "; ".join(f"{p} {adc_paths_text(r)}" for p, r in paths.items())
-              + f"; plain {p_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound "
-              f"{b_ms:.6f} ms (bytes), max abs err {float(diff.max()):.3g}")
+    shapes = [adc_case(*case, dev, peaks) for case in cases]
+    err = max(c["max_abs_err"] for c in shapes)
     # where the direct path stops paying: both paths on the first N rows of
     # the graph's codes with the round's table
     sweep = []
@@ -1353,6 +1436,178 @@ def fleet_cli(report) -> None:
             "the fleet CLI's --tenants JSON differs from --device cpu")
     print("fleet CLI: rw identical twice on the card and on the CPU; "
           "--tenants identical on the card and on the CPU")
+
+
+#: the tuner's shapes: a rung's exact ground truth at dim 960 (the largest
+#: rung: 56 queries x 3,000 points), the closure of a sweep's cluster build
+#: (the 1,200 points of ``tuning/fleet.py``'s ``eval_n`` against the 256
+#: leaves the BKT makes of them at ``ClusterIndexParams``' defaults, k =
+#: num_replica 8, and 4 of ``REPLICA_GRID``), and a graph candidate's ADC
+#: round at m = default_pq_dims(960) on the direct path (up to
+#: pq_adc.SMALL_N rows)
+TUNER_TOPK = (56, 3000, 960, K)
+TUNER_CLOSURE = (1200, 960, (8, 4))
+TUNER_ADC = (4096, 120)
+
+
+def tuner_kernels(dev, peaks, kernels, report) -> None:
+    """``l2_topk`` and ``adc_lookup`` at the tuner's shapes against their
+    plain versions, timed beside their bound and the PyTorch calls; the
+    results join the kernels' lines as ``tuner_shape``."""
+    from repro_torch.core.cluster_index import ClusterIndex
+    from repro_torch.core.types import ClusterIndexParams
+    from repro_torch.data.synth import DatasetSpec, make_dataset
+
+    Q, N, D, k = TUNER_TOPK
+    data, queries = make_dataset(DatasetSpec(
+        "tuner-analog", D, "float32", N, Q, n_clusters=64, intrinsic_dim=32,
+        seed=0))                                # the tuner's rung recipe
+    x = torch.from_numpy(data).to(dev)
+    q = torch.from_numpy(queries).to(dev)
+    topk = topk_case("tuner rung ground truth", q, x, k, peaks, reps=(50, 20),
+                     device=True)
+    err = topk["max_abs_err"]
+
+    n, D, ks = TUNER_CLOSURE
+    data, _ = make_dataset(DatasetSpec(
+        "fleet-analog", D, "float32", n, 48, n_clusters=64, intrinsic_dim=32,
+        seed=0))                                # the fleet sweep's recipe
+    cents = ClusterIndex.build(data, ClusterIndexParams(
+        kmeans_iters=4, seed=0), device=dev).meta.tree.centroids
+    pts = torch.from_numpy(data).to(dev)
+    cents = torch.from_numpy(cents).to(dev)
+    closure = [topk_case("tuner closure", pts, cents, r, peaks, reps=(50, 20),
+                         device=True) for r in ks]
+    err = max(err, *(c["max_abs_err"] for c in closure))
+    topk["closure"] = closure
+
+    N, m = TUNER_ADC
+    rng = np.random.default_rng(2)
+    codes = torch.from_numpy(rng.integers(0, 256, (N, m), dtype=np.uint8)).to(dev)
+    tab = torch.from_numpy(rng.random((m, 256), dtype=np.float32)).to(dev)
+    adc = adc_case("tuner graph round at dim 960", codes, tab, 200, 50, dev, peaks)
+    require(adc["path"] == "direct", "the tuner's ADC shape is not on the direct path")
+    for kern in kernels:
+        if kern["name"] == "l2_topk":
+            kern["tuner_shape"] = topk
+            kern["max_abs_err"] = max(kern["max_abs_err"], err)
+        elif kern["name"] == "adc_lookup":
+            kern["tuner_shape"] = adc
+            kern["max_abs_err"] = max(kern["max_abs_err"], adc["max_abs_err"])
+    report["tuner_kernels"] = {"l2_topk": topk, "adc_lookup": adc}
+    del x, q, pts, cents, codes, tab
+    torch.cuda.empty_cache()
+
+
+#: the commands of ``docs/tuning.md`` at the CLI's defaults: (name, flags,
+#: keys its JSON must carry); "tenants.json" stands for the file of
+#: ``docs/tenancy.md``
+TUNER_RUNS = (
+    ("screen", ["--budget", "screen"],
+     {"recommendation", "screen", "pareto_frontier"}),
+    ("index", ["--recall", "0.95", "--concurrency", "64", "--dim", "960",
+               "--storage", "tos"],
+     {"recommendation", "screen", "pareto_frontier"}),
+    ("fleet", ["--fleet", "--backend", "kernel", "--scenario", "poisson",
+               "--rate", "400"],
+     {"recommendation", "sweep", "meets_slo", "scenario"}),
+    ("window", ["--tune-window", "--scenario", "poisson", "--rate", "400"],
+     {"recommendation", "sweep", "fleet", "meets_target"}),
+    ("split", ["--tune-split", "--tenants", "tenants.json", "--cache-gb", "0.004"],
+     {"recommendation", "screened", "refined"}),
+    ("tier", ["--tune-tier", "--budget-usd-hour", "2.0", "--pricebook",
+              "default"],
+     {"recommendation", "screened", "refined"}),
+    ("write", ["--write-rate", "400"], {"recommendation", "ingest"}),
+)
+#: runs repeated with ``--device cpu``; only the screen measures no index,
+#: so only its JSON must equal the card's (closure pairs at the threshold
+#: may flip between the card and the CPU)
+TUNER_CPU = ("screen", "index", "window")
+
+
+def _tuner_json(argv: list[str]) -> tuple[dict, float]:
+    """``python -m repro_torch.tuning`` in this process: its JSON, ``meta``
+    aside, and its wall seconds."""
+    import contextlib
+    import io
+
+    from repro_torch.tuning.__main__ import main as tuning_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tuning_main([*argv, "--compact"])
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"tuner {' '.join(argv)} returned {rc}")
+    try:
+        out = json.loads(buf.getvalue())
+    except json.JSONDecodeError:
+        out = None
+    require(isinstance(out, dict), f"tuner {' '.join(argv)} printed no JSON")
+    out.pop("meta", None)
+    return out, wall
+
+
+def tuner(report, launches) -> None:
+    """The seven tuner commands on the card (launches counted a run), three
+    of them again on the CPU, and the quick index run as a subprocess."""
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    spec = Path(tmp.name) / "tenants.json"
+    spec.write_text(json.dumps(CLI_TENANTS))
+    runs = report.setdefault("tuner", {})
+    outs = {}
+    for name, flags, keys in TUNER_RUNS:
+        argv = [str(spec) if f == "tenants.json" else f for f in flags]
+        reset()
+        out, wall = _tuner_json(argv)
+        c = launches[f"tuner_{name}"] = counts()
+        require(keys <= set(out), f"tuner {name}: JSON lacks "
+                f"{sorted(keys - set(out))}")
+        outs[name] = out
+        runs[name] = {"flags": argv, "wall_s": wall, "launches": c,
+                      "recommendation": out["recommendation"]}
+        print(f"tuner {name} ({' '.join(flags)}): recommendation "
+              f"{json.dumps(out['recommendation'])}; {wall:.3f} s wall; "
+              f"l2_topk {c['l2_topk']}, adc_lookup {c['adc_lookup']}, "
+              f"l2_distance {c['l2_distance']} launches")
+        require(name == "screen" or c["l2_topk"] > 0,
+                f"tuner {name} built its indexes without launching l2_topk")
+    for name in TUNER_CPU:
+        out, wall = _tuner_json(runs[name]["flags"] + ["--device", "cpu"])
+        same = out == outs[name]
+        runs[name]["equals_cpu"] = same
+        runs[name]["cpu_wall_s"] = wall
+        print(f"tuner {name} with --device cpu: {wall:.3f} s wall; JSON equal "
+              f"to the card's: {same}")
+    require(runs["screen"]["equals_cpu"],
+            "tuner --budget screen: the card's JSON differs from the CPU's")
+    tmp.cleanup()
+    flags = next(f for n, f, _ in TUNER_RUNS if n == "index")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tuning", "--compact", *flags],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"python -m repro_torch.tuning exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    try:
+        out = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        out = None
+    require(isinstance(out, dict) and "recommendation" in out,
+            "python -m repro_torch.tuning printed no JSON recommendation")
+    out.pop("meta", None)
+    runs["index_subprocess"] = {"wall_s": wall,
+                                "equals_in_process": out == outs["index"]}
+    print(f"python -m repro_torch.tuning {' '.join(flags)}: {wall:.3f} s wall, "
+          f"one JSON; equal to the in-process run: {out == outs['index']}")
+    total = {k: sum(launches[f"tuner_{n}"][k] for n, _, _ in TUNER_RUNS)
+             for k in ("l2_topk", "adc_lookup")}
+    print(f"tuner launches on the card: {json.dumps(total)}")
+    require(total["l2_topk"] > 0 and total["adc_lookup"] > 0,
+            f"the tuner runs launched {total}: l2_topk and adc_lookup must run")
 
 
 if __name__ == "__main__":

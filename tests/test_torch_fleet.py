@@ -296,6 +296,10 @@ COPIED = [
     "ingest/mutable.py", "ingest/compaction.py", "ingest/__init__.py",
     "tenancy/spec.py", "tenancy/policy.py", "tenancy/metrics.py",
     "tenancy/fleet.py", "tenancy/__init__.py",
+    "tuning/screen.py", "tuning/pareto.py", "tuning/evaluate.py",
+    "tuning/recommend.py", "tuning/fleet.py", "tuning/tier.py",
+    "tuning/tenancy.py", "tuning/ingest.py", "tuning/__init__.py",
+    "tuning/__main__.py",
 ]
 
 #: module -> (top-level definitions of the reference that the port leaves
@@ -395,6 +399,296 @@ ALLOWED = {
             '+        index = GraphIndex.build(data, GraphIndexParams(R=24, '
             'L_build=48, build_passes=1, pq_dims=default_pq_dims(spec.dim), '
             'seed=seed), device=device)',
+        ]),
+    "tuning/evaluate.py": (
+        set(),
+        "each rung's exact ground truth and index builds run where "
+        'device says (default: the card)',
+        [
+            '-    def __init__(self, w: WorkloadSpec, n: int, nq: int, '
+            'seed: int):',
+            '+    def __init__(self, w: WorkloadSpec, n: int, nq: int, '
+            'seed: int, device=None):',
+            '-        self.gt, _ = exact_topk(self.data, self.queries, w.k)',
+            '+        self.gt, _ = exact_topk(self.data, self.queries, w.k, '
+            'device=device)',
+            '+        self.device = device',
+            '-            idx = ClusterIndex.build(self.data, '
+            'ClusterIndexParams(centroid_frac=c.centroid_frac, '
+            'num_replica=c.num_replica, kmeans_iters=4, seed=self.seed))',
+            '+            idx = ClusterIndex.build(self.data, '
+            'ClusterIndexParams(centroid_frac=c.centroid_frac, '
+            'num_replica=c.num_replica, kmeans_iters=4, seed=self.seed), '
+            'device=self.device)',
+            '-            idx = GraphIndex.build(self.data, '
+            'GraphIndexParams(R=R_eval, L_build=max(24, 2 * R_eval), '
+            'build_passes=1, pq_dims=default_pq_dims(self.data.shape[1]), '
+            'seed=self.seed))',
+            '+            idx = GraphIndex.build(self.data, '
+            'GraphIndexParams(R=R_eval, L_build=max(24, 2 * R_eval), '
+            'build_passes=1, pq_dims=default_pq_dims(self.data.shape[1]), '
+            'seed=self.seed), device=self.device)',
+            '-def trace_candidate(w: WorkloadSpec, env: EnvSpec, cand: '
+            'Candidate, *, eval_n: int=800, nq: int=32, seed: int=0, '
+            'tracer=None):',
+            '-    rung = _Rung(w, eval_n, nq, seed)',
+            '+def trace_candidate(w: WorkloadSpec, env: EnvSpec, cand: '
+            'Candidate, *, eval_n: int=800, nq: int=32, seed: int=0, '
+            'tracer=None, device=None):',
+            '+    rung = _Rung(w, eval_n, nq, seed, device=device)',
+            '-def successive_halving(w: WorkloadSpec, env: EnvSpec, '
+            'screened: list[scr.Prediction], budget: EvalBudget | '
+            'None=None) -> list[EvalOutcome]:',
+            '+def successive_halving(w: WorkloadSpec, env: EnvSpec, '
+            'screened: list[scr.Prediction], budget: EvalBudget | '
+            'None=None, device=None) -> list[EvalOutcome]:',
+            '-        rung = _Rung(w, n_sub, nq, seed=budget.seed + ri)',
+            '+        rung = _Rung(w, n_sub, nq, seed=budget.seed + ri, '
+            'device=device)',
+        ]),
+    "tuning/recommend.py": (
+        set(),
+        "autotune passes the device of its rungs' builds to "
+        'successive_halving',
+        [
+            '-def autotune(workload: WorkloadSpec, env: EnvSpec, budget: '
+            'ev.EvalBudget | str | None=None, kinds: tuple[str, '
+            "...]=('cluster', 'graph'), seed: int=0) -> Recommendation:",
+            '+def autotune(workload: WorkloadSpec, env: EnvSpec, budget: '
+            'ev.EvalBudget | str | None=None, kinds: tuple[str, '
+            "...]=('cluster', 'graph'), seed: int=0, device=None) -> "
+            'Recommendation:',
+            '-        outcomes = ev.successive_halving(workload, env, '
+            'screened, eb)',
+            '+        outcomes = ev.successive_halving(workload, env, '
+            'screened, eb, device=device)',
+        ]),
+    "tuning/fleet.py": (
+        set(),
+        "the sweep's eval index and exact ground truth are built where "
+        'device says (default: the card)',
+        [
+            '-def _eval_index(w: WorkloadSpec, eval_n: int, nq: int, seed: '
+            'int):',
+            '+def _eval_index(w: WorkloadSpec, eval_n: int, nq: int, seed: '
+            'int, device=None):',
+            '-    gt, _ = exact_topk(data, queries, w.k)',
+            '-    index = ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed))',
+            '+    gt, _ = exact_topk(data, queries, w.k, device=device)',
+            '+    index = ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed), device=device)',
+            '-def tune_fleet(w: WorkloadSpec, env: EnvSpec, target_speedup: '
+            'float=2.0, shard_grid: tuple[int, ...]=SHARD_GRID, '
+            'replica_grid: tuple[int, ...]=FLEET_REPLICA_GRID, hedge: '
+            'bool=False, eval_n: int=1200, nq: int=48, nprobe: int=32, '
+            'exec_kw: dict | None=None, seed: int=0) -> '
+            'FleetRecommendation:',
+            '-    index, queries, gt = _eval_index(w, eval_n, nq, seed)',
+            '+def tune_fleet(w: WorkloadSpec, env: EnvSpec, target_speedup: '
+            'float=2.0, shard_grid: tuple[int, ...]=SHARD_GRID, '
+            'replica_grid: tuple[int, ...]=FLEET_REPLICA_GRID, hedge: '
+            'bool=False, eval_n: int=1200, nq: int=48, nprobe: int=32, '
+            'exec_kw: dict | None=None, seed: int=0, device=None) -> '
+            'FleetRecommendation:',
+            '+    index, queries, gt = _eval_index(w, eval_n, nq, seed, '
+            'device=device)',
+            '-def tune_fleet_for_load(w: WorkloadSpec, env: EnvSpec, '
+            'scenario: Scenario, goodput_target: float=0.99, shard_grid: '
+            'tuple[int, ...]=SHARD_GRID, replica_grid: tuple[int, '
+            '...]=FLEET_REPLICA_GRID, hedge: bool=False, eval_n: int=1200, '
+            'nq: int=48, nprobe: int=32, exec_kw: dict | None=None, seed: '
+            'int=0) -> LoadRecommendation:',
+            '+def tune_fleet_for_load(w: WorkloadSpec, env: EnvSpec, '
+            'scenario: Scenario, goodput_target: float=0.99, shard_grid: '
+            'tuple[int, ...]=SHARD_GRID, replica_grid: tuple[int, '
+            '...]=FLEET_REPLICA_GRID, hedge: bool=False, eval_n: int=1200, '
+            'nq: int=48, nprobe: int=32, exec_kw: dict | None=None, seed: '
+            'int=0, device=None) -> LoadRecommendation:',
+            '-    index, queries, gt = _eval_index(w, eval_n, nq, seed)',
+            '+    index, queries, gt = _eval_index(w, eval_n, nq, seed, '
+            'device=device)',
+            '-def trace_fleet_point(w: WorkloadSpec, env: EnvSpec, point: '
+            'FleetPoint, *, scenario: Scenario | None=None, tracer=None, '
+            'monitor=None, pricebook=None, eval_n: int=1200, nq: int=48, '
+            'nprobe: int=32, exec_kw: dict | None=None, seed: int=0):',
+            '-    index, queries, _ = _eval_index(w, eval_n, nq, seed)',
+            '+def trace_fleet_point(w: WorkloadSpec, env: EnvSpec, point: '
+            'FleetPoint, *, scenario: Scenario | None=None, tracer=None, '
+            'monitor=None, pricebook=None, eval_n: int=1200, nq: int=48, '
+            'nprobe: int=32, exec_kw: dict | None=None, seed: int=0, '
+            'device=None):',
+            '+    index, queries, _ = _eval_index(w, eval_n, nq, seed, '
+            'device=device)',
+            '-def tune_batch_window(w: WorkloadSpec, env: EnvSpec, point: '
+            'FleetPoint | None=None, *, scenario: Scenario | None=None, '
+            'window_grid_us: tuple[float, ...]=WINDOW_GRID_US, calibration: '
+            'str | None=None, goodput_target: float=0.99, p99_slack: '
+            'float=0.2, eval_n: int=1200, nq: int=48, nprobe: int=32, seed: '
+            'int=0) -> WindowRecommendation:',
+            '+def tune_batch_window(w: WorkloadSpec, env: EnvSpec, point: '
+            'FleetPoint | None=None, *, scenario: Scenario | None=None, '
+            'window_grid_us: tuple[float, ...]=WINDOW_GRID_US, calibration: '
+            'str | None=None, goodput_target: float=0.99, p99_slack: '
+            'float=0.2, eval_n: int=1200, nq: int=48, nprobe: int=32, seed: '
+            'int=0, device=None) -> WindowRecommendation:',
+            '-    index, queries, gt = _eval_index(w, eval_n, nq, seed)',
+            '+    index, queries, gt = _eval_index(w, eval_n, nq, seed, '
+            'device=device)',
+        ]),
+    "tuning/tier.py": (
+        set(),
+        'tune_tier_split builds its eval index where device says '
+        '(default: the card)',
+        [
+            '-def tune_tier_split(w: WorkloadSpec, env: EnvSpec, '
+            'budget_usd_per_hour: float, *, book: PriceBook | None=None, '
+            'widths: tuple[int, ...]=TIER_WIDTH_GRID, steps: int=6, '
+            'refine_top: int=3, mrc: dict | None=None, eval_n: int=1200, '
+            'nq: int=48, nprobe: int=32, seed: int=0) -> '
+            'TierSplitRecommendation:',
+            '+def tune_tier_split(w: WorkloadSpec, env: EnvSpec, '
+            'budget_usd_per_hour: float, *, book: PriceBook | None=None, '
+            'widths: tuple[int, ...]=TIER_WIDTH_GRID, steps: int=6, '
+            'refine_top: int=3, mrc: dict | None=None, eval_n: int=1200, '
+            'nq: int=48, nprobe: int=32, seed: int=0, device=None) -> '
+            'TierSplitRecommendation:',
+            '-    index, queries, gt = _eval_index(w, eval_n, nq, seed)',
+            '+    index, queries, gt = _eval_index(w, eval_n, nq, seed, '
+            'device=device)',
+        ]),
+    "tuning/tenancy.py": (
+        set(),
+        'tune_cache_split materialises its tenants where device says '
+        '(default: the card)',
+        [
+            '-def tune_cache_split(specs: list[TenantSpec], cfg: '
+            'FleetConfig, *, steps: int=8, refine_top: int=3, mrc: dict | '
+            'None=None) -> CacheSplitRecommendation:',
+            '+def tune_cache_split(specs: list[TenantSpec], cfg: '
+            'FleetConfig, *, steps: int=8, refine_top: int=3, mrc: dict | '
+            'None=None, device=None) -> CacheSplitRecommendation:',
+            '-    tenants = [materialize_tenant(s, base_seed=cfg.seed, '
+            'tid=i) for i, s in enumerate(specs)]',
+            '+    tenants = [materialize_tenant(s, base_seed=cfg.seed, '
+            'tid=i, device=device) for i, s in enumerate(specs)]',
+            '-        fresh = [t if t.updates is None else '
+            'materialize_tenant(specs[i], base_seed=cfg.seed, tid=i) for i, '
+            't in enumerate(tenants)]',
+            '+        fresh = [t if t.updates is None else '
+            'materialize_tenant(specs[i], base_seed=cfg.seed, tid=i, '
+            'device=device) for i, t in enumerate(tenants)]',
+        ]),
+    "tuning/ingest.py": (
+        set(),
+        'a measured ingest point builds its index where device says '
+        '(default: the card)',
+        [
+            '-def evaluate_ingest_point(w: WorkloadSpec, env: EnvSpec, '
+            'pred: IngestPrediction, *, eval_n: int=1200, nq: int=32, seed: '
+            'int=0) -> IngestOutcome:',
+            '+def evaluate_ingest_point(w: WorkloadSpec, env: EnvSpec, '
+            'pred: IngestPrediction, *, eval_n: int=1200, nq: int=32, seed: '
+            'int=0, device=None) -> IngestOutcome:',
+            '-    index = make_mutable(ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed)))',
+            '+    index = make_mutable(ClusterIndex.build(data, '
+            'ClusterIndexParams(kmeans_iters=4, seed=seed), device=device))',
+            '-def tune_ingest(w: WorkloadSpec, env: EnvSpec, cand: '
+            'Candidate | None=None, *, refine: int=0, eval_n: int=1200, nq: '
+            'int=32, seed: int=0) -> IngestRecommendation:',
+            '+def tune_ingest(w: WorkloadSpec, env: EnvSpec, cand: '
+            'Candidate | None=None, *, refine: int=0, eval_n: int=1200, nq: '
+            'int=32, seed: int=0, device=None) -> IngestRecommendation:',
+            '-            outcomes.append(evaluate_ingest_point(w, env, p, '
+            'eval_n=eval_n, nq=nq, seed=seed))',
+            '+            outcomes.append(evaluate_ingest_point(w, env, p, '
+            'eval_n=eval_n, nq=nq, seed=seed, device=device))',
+        ]),
+    "tuning/__main__.py": (
+        set(),
+        '--device picks where every index build and exact ground truth '
+        'of the tuner runs',
+        [
+            '+from repro_torch.device import resolve_device',
+            "-    p = argparse.ArgumentParser(prog='python -m "
+            "repro.tuning', description='Auto-tune index class, "
+            'build/search params and cache policy for a workload + storage '
+            'environment; with --fleet, size a serving fleet (optionally '
+            "for an open-loop offered load + SLO).')",
+            "+    p = argparse.ArgumentParser(prog='python -m "
+            "repro_torch.tuning', description='Auto-tune index class, "
+            'build/search params and cache policy for a workload + storage '
+            'environment; with --fleet, size a serving fleet (optionally '
+            "for an open-loop offered load + SLO).')",
+            '+    p.add_argument(\'--device\', default=None, help="where the '
+            'index builds and the exact ground truths run, and where a '
+            'graph index keeps its PQ codes (default: cuda; raises without '
+            'a card; \'cpu\' runs the plain PyTorch versions)")',
+            '+    device = resolve_device(args.device)',
+            '-        rec = tune_cache_split(specs, cfg, '
+            'steps=args.split_steps, refine_top=args.refine_top, mrc=mrc)',
+            '+        rec = tune_cache_split(specs, cfg, '
+            'steps=args.split_steps, refine_top=args.refine_top, mrc=mrc, '
+            'device=device)',
+            '-            rec = tune_tier_split(w, env, '
+            'args.budget_usd_hour, book=pricebook, widths=widths, '
+            'steps=args.tier_steps, refine_top=args.refine_top, mrc=mrc, '
+            'seed=args.seed)',
+            '+            rec = tune_tier_split(w, env, '
+            'args.budget_usd_hour, book=pricebook, widths=widths, '
+            'steps=args.tier_steps, refine_top=args.refine_top, mrc=mrc, '
+            'seed=args.seed, device=device)',
+            '-        rec = tune_batch_window(w, env, scenario=scenario if '
+            "scenario.kind != 'closed' else None, "
+            'calibration=args.calibration, goodput_target=args.goodput, '
+            'seed=args.seed)',
+            '+        rec = tune_batch_window(w, env, scenario=scenario if '
+            "scenario.kind != 'closed' else None, "
+            'calibration=args.calibration, goodput_target=args.goodput, '
+            'seed=args.seed, device=device)',
+            '-            trace_fleet_point(w, env, rec.point, '
+            'scenario=scenario, tracer=tracer, '
+            "exec_kw=dict(backend='kernel', batch_window_s=rec.window_us * "
+            '1e-06, calibration=args.calibration), seed=args.seed)',
+            '+            trace_fleet_point(w, env, rec.point, '
+            'scenario=scenario, tracer=tracer, '
+            "exec_kw=dict(backend='kernel', batch_window_s=rec.window_us * "
+            '1e-06, calibration=args.calibration), seed=args.seed, '
+            'device=device)',
+            '-            rec = tune_fleet(w, env, '
+            'target_speedup=args.target_speedup, hedge=args.hedge, '
+            'exec_kw=exec_kw, seed=args.seed)',
+            '+            rec = tune_fleet(w, env, '
+            'target_speedup=args.target_speedup, hedge=args.hedge, '
+            'exec_kw=exec_kw, seed=args.seed, device=device)',
+            '-            rec = tune_fleet_for_load(w, env, scenario, '
+            'goodput_target=args.goodput, hedge=args.hedge, '
+            'exec_kw=exec_kw, seed=args.seed)',
+            '+            rec = tune_fleet_for_load(w, env, scenario, '
+            'goodput_target=args.goodput, hedge=args.hedge, '
+            'exec_kw=exec_kw, seed=args.seed, device=device)',
+            '-            vrep = trace_fleet_point(w, env, rec.point, '
+            'scenario=scenario, tracer=tracer, monitor=monitor, '
+            'pricebook=pricebook, exec_kw=exec_kw, seed=args.seed)',
+            '+            vrep = trace_fleet_point(w, env, rec.point, '
+            'scenario=scenario, tracer=tracer, monitor=monitor, '
+            'pricebook=pricebook, exec_kw=exec_kw, seed=args.seed, '
+            'device=device)',
+            '-    rec = autotune(w, env, budget=budget, '
+            "kinds=tuple((k.strip() for k in args.kinds.split(',') if "
+            'k.strip())))',
+            '+    rec = autotune(w, env, budget=budget, '
+            "kinds=tuple((k.strip() for k in args.kinds.split(',') if "
+            'k.strip())), device=device)',
+            '-        trace_candidate(w, env, rec.config, tracer=tracer, '
+            'seed=args.seed)',
+            '+        trace_candidate(w, env, rec.config, tracer=tracer, '
+            'seed=args.seed, device=device)',
+            "-        out['ingest'] = tune_ingest(w, env, rec.config, "
+            'refine=refine, seed=args.seed).to_dict()',
+            "+        out['ingest'] = tune_ingest(w, env, rec.config, "
+            'refine=refine, seed=args.seed, device=device).to_dict()',
         ]),
     "exec/__init__.py": (
         set(),

@@ -2,7 +2,7 @@
 package's (``repro.ingest``).
 
 Mirrors ``tests/test_ingest.py`` test for test (all but the two tuner
-tests, which wait for ``tuning/``).  Each test makes its inputs once with
+tests, which ``tests/test_torch_tuning.py`` mirrors).  Each test makes its inputs once with
 numpy, runs the reference's scenario through both packages, holds the port
 to the reference's own assertions, and compares what the two give: whole
 reports (``summary()``), per-query ids and virtual times exactly, graph

@@ -2,7 +2,7 @@
 JAX package's (``repro.tenancy``).
 
 Mirrors ``tests/test_tenancy.py`` test for test (all but the two tuner
-tests, which wait for ``tuning/``).  Each test runs the reference's
+tests, which ``tests/test_torch_tuning.py`` mirrors).  Each test runs the reference's
 scenario through both packages, holds the port to the reference's own
 assertions, and compares what the two give: whole multi-tenant reports
 (``to_json()``), per-tenant records' ids and virtual times exactly.  The
