@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's main paths once on the card, and check them.
 
-Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
+Two index paths, both on deep-analog data (DEEP10M's shape, 96-d float32),
+and the LM serving path:
 
 * the SPANN cluster index on the device, at the size of the standard 1M
   ANN sets: 1,000,000 vectors and 10,000 queries;
 * the DiskANN graph index at 200,000 vectors and 2,000 queries (cut from
-  1M: the build's RobustPrune is host numpy, as in the reference).
+  1M: the build's RobustPrune is host numpy, as in the reference);
+* retrieval-augmented generation with gemma-2b at its full width over a
+  4,096-document corpus.
 
 1. build the three CUDA kernels from this checkout's sources (one nvcc
    each, all started together);
@@ -15,6 +18,11 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    ``exact_topk`` (``l2_topk``), k=10; ``device_search_batch`` at nprobe 16
    and 64 in batches of 512 (the centroid probe runs ``l2_distance``):
    recall@10 and queries/s;
+2b. ``core/distributed.py`` on one NCCL rank (a ``file://`` store): the
+   sharded search step over the whole index (512 queries, nprobe_local 16,
+   k=10; its probe runs ``l2_distance``) and a sharded k-means step (100,000
+   points, 1,024 centroids), each held against the same step on the CPU
+   through a ``gloo`` group, with the step's time and launches;
 3. graph path: ``GraphIndex.build`` (R=24, L_build=48, one pass, 48 PQ
    subquantizers: the greedy search and PQ training on the card, the prune
    on the host); ground truth with ``exact_topk``; ``GraphIndex.search`` at
@@ -75,7 +83,18 @@ Two paths, both on deep-analog data (DEEP10M's shape, 96-d float32):
    ``--budget screen``, the quick index run and ``--tune-window`` again
    with ``--device cpu`` (the screen, which measures no index, must give
    the card's JSON); and the quick index run as ``python -m
-   repro_torch.tuning``, which must print one JSON.
+   repro_torch.tuning``, which must print one JSON;
+12. retrieval-augmented generation (``launch/serve.py``'s pipeline) at
+   gemma-2b's full width (18 layers, d_model 2,048, vocab 256,000, bf16
+   activations over f32 weights drawn from seed 0 on the host): embed 4,096
+   documents and 64 requests, ``ClusterIndex.build`` (closure through
+   ``l2_topk`` at D = 2,048), ``run_workload`` over ``tos`` (recall@4
+   against ``exact_topk``), 8 greedy tokens a request; prefill and decode
+   time of 16 requests and one under the profiler; the logits of 4 held to
+   the teacher-forced full forward in f32 (no TF32) and in bf16; ``l2_topk``
+   at the closure's and the ground truth's shapes against its plain
+   version; then ``python -m repro_torch.launch.serve`` on the card and
+   with ``--device cpu``.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -492,6 +511,10 @@ def main(argv=None) -> int:
     require(overlap >= 0.99, "card search disagrees with the CPU plain path")
     t = phase("card vs CPU search", t)
 
+    # ---- 2b. the sharded search and k-means steps, one NCCL rank --------
+    sharded(dev, data, queries, arrs, dv, report, launches)
+    t = phase("sharded search and k-means steps (one NCCL rank)", t)
+
     # ---- 3. graph path ---------------------------------------------------
     gindex, gdata, gqueries, ggt, gids, gadc, t = graph_path(
         args, dev, report, launches, t)
@@ -794,6 +817,13 @@ def main(argv=None) -> int:
     t = phase("tuner: kernels at the tuner's shapes", t)
     tuner(report, launches)
     t = phase("tuner CLI", t)
+
+    # ---- 12. retrieval-augmented generation at gemma-2b's full width ----
+    from repro_torch.configs.archs import ARCHS
+    rag(dev, peaks, kernels, report, launches, ARCHS["gemma-2b"], RAG_CORPUS)
+    t = phase("RAG at gemma-2b's full width", t)
+    serve_cli(report)
+    t = phase("serve CLI on the card and the CPU", t)
 
     for kern in kernels:
         kern["launches"] = sum(c[kern["name"]] for c in launches.values())
@@ -1608,6 +1638,359 @@ def tuner(report, launches) -> None:
     print(f"tuner launches on the card: {json.dumps(total)}")
     require(total["l2_topk"] > 0 and total["adc_lookup"] > 0,
             f"the tuner runs launched {total}: l2_topk and adc_lookup must run")
+
+
+#: the sharded step's shapes: a batch of queries against the 1M index's
+#: lists on one rank; the k-means step's points and centroids
+SHARD_QUERIES, SHARD_NPROBE = 512, 16
+KMEANS_N, KMEANS_K = 100_000, 1024
+KMEANS_RTOL = 1e-5
+
+
+def _probe_tie(d_card, d_cpu, nprobe, q, cents, tol_row) -> torch.Tensor:
+    """Rows whose probed lists differ, each only by centroids tied at the
+    nprobe-th place: the exact (float64) distances of the lists either side
+    probed and the other did not lie within 2 * tol of that place's."""
+    from repro_torch.core.distances import topk_smallest
+    pc = topk_smallest(d_card, nprobe)[1].cpu().sort(1).values
+    pp = topk_smallest(d_cpu, nprobe)[1].sort(1).values
+    rows = (pc != pp).any(1).nonzero()[:, 0]
+    for r in rows.tolist():
+        qd = q[r].double()
+        ex = ((cents.double() - qd) ** 2).sum(-1)
+        edge = ex.sort().values[nprobe - 1]
+        swapped = torch.tensor(sorted(set(pc[r].tolist()) ^ set(pp[r].tolist())))
+        require(bool(((ex[swapped.to(ex.device)] - edge).abs()
+                      <= 2 * tol_row[r]).all()),
+                f"sharded search: query {r} probed other lists on the card "
+                f"than on the CPU, beyond a near-tie at place {nprobe}")
+    return rows
+
+
+def sharded(dev, data, queries, arrs, dv, report, launches) -> None:
+    """``core/distributed.py`` on the card: one NCCL rank (a ``file://``
+    store in a temporary directory) runs the sharded search step over the
+    whole cluster index and a k-means step; a ``gloo`` group of the same
+    rank runs both on the CPU with the plain versions, and the card must
+    agree with it (ids up to near-ties, distances within the f32 tolerance;
+    centroids within rtol 1e-5 except those a near-tie point moved)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (sharded_kmeans_step,
+                                              sharded_search_step)
+    from repro_torch.kernels import distance
+    from repro_torch.kernels.ref import l2_distance_ref
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        cents, vecs, ids = dv["centroids"], dv["list_vecs"], dv["list_ids"]
+        norms = (vecs * vecs).sum(-1)
+        q = torch.from_numpy(queries[:SHARD_QUERIES]).to(dev)
+        step = sharded_search_step(nprobe_local=SHARD_NPROBE, k=K)
+        step(cents, vecs, ids, norms, q)              # warm-up (NCCL, cuBLAS)
+        torch.cuda.synchronize()
+        reset()
+        got_ids, got_d = step(cents, vecs, ids, norms, q)
+        torch.cuda.synchronize()
+        c = launches["sharded_search"] = counts()
+        require(c["l2_distance"] == 1, f"the sharded search step launched {c}")
+        ms = time_ms(lambda: step(cents, vecs, ids, norms, q), 10)
+        cpu = [torch.from_numpy(arrs[key]) for key in
+               ("centroids", "list_vecs", "list_ids")]
+        want_ids, want_d = sharded_search_step(
+            cpu_group, nprobe_local=SHARD_NPROBE, k=K)(
+                *cpu, norms.cpu(), q.cpu())
+        xs = torch.from_numpy(data).to(dev)
+        row_tol = TOL * ((q * q).sum(-1) + (xs * xs).sum(-1).max()) + 1e-6
+        probe_rows = _probe_tie(distance.l2_distance(q, cents),
+                                l2_distance_ref(q.cpu(), cpu[0]), SHARD_NPROBE,
+                                q, cents, row_tol)
+        same_probe = torch.ones(len(q), dtype=torch.bool)
+        same_probe[probe_rows] = False
+        gi, wi = got_ids.cpu()[same_probe], want_ids[same_probe]
+        n_diff, ties = near_tie_rows(gi.to(dev), wi.to(dev), q[same_probe.to(dev)],
+                                     xs, row_tol[same_probe.to(dev)])
+        err = (got_d.cpu() - want_d).abs()[same_probe]
+        require(ties, f"sharded search: ids differ from the CPU's beyond "
+                f"near-ties in {n_diff} rows")
+        require(bool((err <= row_tol.cpu()[same_probe][:, None]).all()),
+                f"sharded search: distances differ from the CPU's by {err.max()}")
+        print(f"sharded search step, 1 NCCL rank, {len(q)} queries x "
+              f"{cents.shape[0]} lists (max {vecs.shape[1]}), nprobe_local "
+              f"{SHARD_NPROBE}, k={K}: {ms:.4f} ms a step (CUDA events), "
+              f"l2_distance launches {c['l2_distance']}; against the CPU (gloo): "
+              f"{len(probe_rows)} rows probed other lists at a near-tie, "
+              f"{n_diff} rows differ otherwise, all near-ties; max abs err "
+              f"{float(err.max()):.3g}")
+        del norms, got_ids, got_d
+
+        x = xs[:KMEANS_N]
+        init = xs[KMEANS_N:KMEANS_N + KMEANS_K]
+        kstep = sharded_kmeans_step()
+        reset()
+        got = kstep(x, init)
+        torch.cuda.synchronize()
+        kc = launches["sharded_kmeans"] = counts()
+        require(kc["l2_distance"] == 1, f"the k-means step launched {kc}")
+        kms = time_ms(lambda: kstep(x, init), 10)
+        want = sharded_kmeans_step(cpu_group)(x.cpu(), init.cpu())
+        # points the card and the CPU assign to other centroids must be
+        # near-ties; the centroids they touch may move by a point's share
+        a_card = distance.l2_distance(x, init).argmin(1).cpu()
+        a_cpu = l2_distance_ref(x.cpu(), init.cpu()).argmin(1)
+        moved = (a_card != a_cpu).nonzero()[:, 0]
+        cn = (init * init).sum(-1)
+        for i in moved.tolist():
+            pair = torch.tensor([int(a_card[i]), int(a_cpu[i])], device=dev)
+            ex = ((init[pair].double() - x[i].double()) ** 2).sum(-1)
+            tol_i = TOL * float((x[i] * x[i]).sum() + cn[pair].max()) + 1e-6
+            require(abs(float(ex[0] - ex[1])) <= 2 * tol_i,
+                    f"k-means: point {i} moved beyond a near-tie")
+        touched = set(a_card[moved].tolist()) | set(a_cpu[moved].tolist())
+        keep = torch.tensor([j not in touched for j in range(KMEANS_K)])
+        atol = KMEANS_RTOL * float(x.abs().max())
+        kerr = (got.cpu() - want).abs()[keep]
+        require(bool((kerr <= atol + KMEANS_RTOL * want[keep].abs()).all()),
+                f"k-means step: centroids differ from the CPU's by {kerr.max()}")
+        print(f"sharded k-means step, 1 NCCL rank, {KMEANS_N} points x "
+              f"{KMEANS_K} centroids: {kms:.4f} ms a step (CUDA events), "
+              f"l2_distance launches {kc['l2_distance']}; {len(moved)} points "
+              f"near-tied, touching {len(touched)} clusters; the other "
+              f"{int(keep.sum())} within rtol {KMEANS_RTOL} (atol {atol:.3g}), "
+              f"max abs err {float(kerr.max()):.3g}")
+        report["sharded"] = {
+            "search": {"ms": ms, "launches": c, "probe_near_ties": len(probe_rows),
+                       "rows_differing": n_diff, "max_abs_err": float(err.max())},
+            "kmeans": {"ms": kms, "launches": kc, "near_tie_points": len(moved),
+                       "clusters_touched": len(touched),
+                       "max_abs_err": float(kerr.max())}}
+        del xs, x, init, got
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+
+#: the RAG corpus: 4,096 documents of 32 tokens (the reference driver's
+#: --corpus 128 would leave the kernels almost nothing to do)
+RAG_CORPUS, RAG_REQUESTS, RAG_TOKENS, RAG_K = 4096, 64, 8, 4
+RAG_TIMED, RAG_CHECKED = 16, 4
+#: bf16 logits against f32: |bf16 - f32| <= ATOL + RTOL * |f32|.  RTOL: the
+#: logit itself is rounded to bf16 (half an ulp, 2^-9) after a product of
+#: bf16-rounded operands (2^-9 each), with room for the rounding of the
+#: final norm; ATOL: the rounding the hidden state gathers through 18
+#: layers of bf16 residual adds and products (two layers at this width
+#: gave 0.028 on logits of RMS 1.0 on the CPU), taken with a margin
+BF16_ATOL, BF16_RTOL = 0.25, 2.0 ** -6
+
+
+def _logit_check(got, want, what):
+    err = (got - want).abs()
+    excess = float((err - BF16_RTOL * want.abs()).max())
+    require(excess <= BF16_ATOL, f"{what}: |bf16 - reference| exceeds "
+            f"{BF16_ATOL} + {BF16_RTOL}*|reference| by {excess - BF16_ATOL}")
+    return {"max_abs_err": float(err.max()),
+            "rms_err": float(err.pow(2).mean().sqrt()),
+            "max_err_less_rtol": excess}
+
+
+def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> None:
+    """``launch/serve.py``'s pipeline on the card at ``cfg``'s width: embed
+    ``corpus`` documents and 64 requests, index them with
+    ``ClusterIndex.build`` (closure through ``l2_topk``), retrieve, generate
+    8 tokens a request; recall@4 against ``exact_topk``; prefill and decode
+    time of 16 requests; the logits of 4 against the f32 and the bf16 full
+    forward, teacher-forced; ``l2_topk`` at the closure's and the ground
+    truth's shapes against its plain version."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.core.flat import exact_topk
+    from repro_torch.core.types import recall_at_k
+    from repro_torch.kernels.ref import full_f32_matmul
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import LM
+    from repro_torch.serve.decode import decode_steps
+
+    t0 = time.perf_counter()
+    params = LM(cfg, seed=0, device="cpu").state_dict()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    print(f"RAG: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype} activations: {n_params} parameters "
+          f"({4 * n_params / 1e9:.2f} GB f32), drawn on the CPU in "
+          f"{init_s:.1f} s", flush=True)
+    args = argparse.Namespace(arch=cfg.name, requests=RAG_REQUESTS,
+                              tokens=RAG_TOKENS, corpus=corpus, k=RAG_K)
+    reset()
+    t0 = time.perf_counter()
+    run = serve(cfg, params, args, dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    del params
+    c = launches["rag_serve"] = counts()
+    require(c["l2_topk"] == math.ceil(corpus / 4096),
+            f"the RAG index build launched {c}")
+    require(sorted(run.outputs) == list(range(RAG_REQUESTS)) and all(
+        o.shape == (RAG_TOKENS,) and ((o >= 0) & (o < cfg.vocab)).all()
+        for o in run.outputs.values()), "RAG: a request generated no tokens")
+    require(np.isfinite(run.vecs).all() and np.isfinite(run.qv).all(),
+            "RAG: embeddings not finite")
+    reset()
+    gt, _ = exact_topk(run.vecs, run.qv, RAG_K, device=dev)
+    launches["rag_ground_truth"] = counts()
+    rep = run.report
+    recall = float(np.mean([recall_at_k(r.ids[:RAG_K], gt[r.qid])
+                            for r in rep.records]))
+    p50 = rep.latency_percentile(50)
+    print(f"RAG retrieval: recall@{RAG_K} {recall:.4f} against exact_topk, "
+          f"virtual p50 {p50 * 1e3:.3f} ms, {rep.mean_bytes_read / 1e3:.3f} "
+          f"KB/query; serve {serve_s:.1f} s (embed, build, retrieve, "
+          f"generate {RAG_REQUESTS} requests)", flush=True)
+
+    lm = run.lm
+    step_bytes = 8 * n_params      # f32 read 4, bf16 cast written 2, read 2
+    pre_ms, dec_ms, checked = [], [], {}
+    for qid in sorted(run.prompts)[:RAG_TIMED]:
+        batch = {"tokens": torch.from_numpy(run.prompts[qid][None]).to(
+            dev, torch.long)}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        it = decode_steps(lm, batch, RAG_TOKENS)
+        steps = [next(it)]
+        ev[1].record()
+        steps += list(it)              # then the step after the last token
+        ev[2].record()
+        torch.cuda.synchronize()
+        pre_ms.append(ev[0].elapsed_time(ev[1]))
+        dec_ms.append(ev[1].elapsed_time(ev[2]) / RAG_TOKENS)
+        toks = torch.stack([tok for _, tok in steps], 1)
+        require(np.array_equal(toks[0].cpu().numpy(), run.outputs[qid]),
+                f"RAG request {qid}: a second generation gave other tokens")
+        if len(checked) < RAG_CHECKED:
+            checked[qid] = (batch["tokens"], toks,
+                            torch.cat([lg for lg, _ in steps]))
+    print(f"RAG generation, {len(pre_ms)} requests of 64 prompt tokens: "
+          f"prefill {np.median(pre_ms):.3f} ms (median; {min(pre_ms):.3f}-"
+          f"{max(pre_ms):.3f}), decode {np.median(dec_ms):.3f} ms a token "
+          f"(median; {min(dec_ms):.3f}-{max(dec_ms):.3f}), CUDA events; a "
+          f"step's bytes (f32 weights read, their bf16 cast written and "
+          f"read) take {step_bytes / peaks[1] * 1e3:.3f} ms at the card's "
+          f"rate", flush=True)
+
+    # one request's generation under the profiler: the card's busy time
+    # against the wall time, and the kernels that take it
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in decode_steps(lm, batch, RAG_TOKENS):
+            pass
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    gen_profile = {"wall_us": wall_us, "device_busy_us": busy_us,
+                   "kernels": sum(e.count for e in kern),
+                   "top_kernels_us": [(e.key[:60], round(e.self_device_time_total, 1))
+                                      for e in kern[:6]]}
+    print(f"RAG generation profile, one request (prefill + {RAG_TOKENS} "
+          f"decode steps): wall {wall_us:.0f} us, device busy {busy_us:.0f} "
+          f"us (idle share {1 - busy_us / wall_us:.3f}), "
+          f"{gen_profile['kernels']} kernels; top (us): "
+          f"{gen_profile['top_kernels_us']}", flush=True)
+
+    # the cached bf16 logits against the teacher-forced full forward of the
+    # same weights, in f32 (no TF32) and in bf16 (which checks the caches)
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"), seed=None,
+              device="meta")
+    lm32.load_state_dict(lm.state_dict(), assign=True)
+    checks = []
+    with torch.no_grad():
+        for qid, (prompt, toks, got) in checked.items():
+            seq = torch.cat([prompt, toks[:, :-1]], 1)
+            S = prompt.shape[1]
+            with full_f32_matmul():
+                f32 = lm32.logits({"tokens": seq})[0, S - 1:]
+            b16 = lm.logits({"tokens": seq})[0, S - 1:]
+            checks.append({
+                "qid": qid,
+                "vs_f32": _logit_check(got, f32, f"RAG request {qid}, f32"),
+                "vs_bf16_full": _logit_check(got, b16, f"RAG request {qid}, bf16"),
+                "top1_equal_f32": int((got.argmax(-1) == f32.argmax(-1)).sum()),
+                "f32_logit_rms": float(f32.pow(2).mean().sqrt())})
+            print(f"RAG request {qid}: prefill + {RAG_TOKENS - 1} decode "
+                  f"steps' logits vs the f32 full forward "
+                  f"{json.dumps(checks[-1]['vs_f32'])}, vs the bf16 full "
+                  f"forward {json.dumps(checks[-1]['vs_bf16_full'])}; "
+                  f"argmax equal to f32's at {checks[-1]['top1_equal_f32']} "
+                  f"of {RAG_TOKENS} steps (logit RMS "
+                  f"{checks[-1]['f32_logit_rms']:.3f})")
+    del lm32, checked
+    torch.cuda.empty_cache()
+
+    # l2_topk at the pipeline's own shapes, against its plain version
+    vecs = torch.from_numpy(run.vecs).to(dev)
+    qv = torch.from_numpy(run.qv).to(dev)
+    cents = torch.from_numpy(run.index.meta.tree.centroids).to(dev)
+    cases = [topk_case("RAG closure", vecs[:4096], cents, 4, peaks,
+                       reps=(50, 20), device=True),
+             topk_case("RAG ground truth", qv, vecs, RAG_K, peaks,
+                       reps=(50, 20), device=True)]
+    for kern in kernels:
+        if kern["name"] == "l2_topk":
+            kern["rag_shapes"] = cases
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      *(c_["max_abs_err"] for c_ in cases))
+    report["rag"] = {
+        "config": cfg.name, "parameters": n_params, "init_s": init_s,
+        "serve_s": serve_s, "recall": recall, "p50_s": p50,
+        "kb_per_query": rep.mean_bytes_read / 1e3,
+        "prefill_ms": pre_ms, "decode_ms_per_token": dec_ms,
+        "decode_bound_ms": step_bytes / peaks[1] * 1e3,
+        "generation_profile": gen_profile,
+        "logit_checks": checks, "l2_topk": cases,
+        "launches": {k: launches[k] for k in ("rag_serve", "rag_ground_truth")}}
+    del run, lm, vecs, qv, cents
+    torch.cuda.empty_cache()
+
+
+def serve_cli(report) -> None:
+    """``python -m repro_torch.launch.serve`` as a user runs it (the smoke
+    config) on the card and with ``--device cpu``: each must exit 0 and
+    print a line for each request; whether the two texts match is printed
+    (both draw the same weights on the CPU)."""
+    root = Path(__file__).resolve().parent
+    texts = {}
+    for name, flags in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "gemma-2b", "--requests", "4", "--tokens", "8", *flags],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"serve CLI ({name}) exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        reqs = sorted(int(ln.split()[1].rstrip(":")) for ln in lines
+                      if ln.startswith("request "))
+        require(reqs == [0, 1, 2, 3], f"serve CLI ({name}) printed requests "
+                f"{reqs}")
+        texts[name] = proc.stdout
+        report.setdefault("serve_cli", {})[name] = {"wall_s": wall,
+                                                    "stdout": proc.stdout}
+        print(f"serve CLI ({name}), {wall:.3f} s:\n{proc.stdout.rstrip()}")
+    same = texts["card"] == texts["cpu"]
+    report["serve_cli"]["same_text"] = same
+    print(f"serve CLI: the card's text equals --device cpu's: {same}")
 
 
 if __name__ == "__main__":

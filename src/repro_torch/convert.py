@@ -1,11 +1,14 @@
-"""Carry an index built by the JAX package across to the port.
+"""Carry an index or LM parameters of the JAX package across to the port.
 
 :func:`cluster_index_from_reference` and :func:`graph_index_from_reference`
 read a ``repro`` ``ClusterIndex`` / ``GraphIndex`` through its attributes
 and numpy arrays only (duck typing: nothing of ``repro`` is imported) and
 return the port's index with the same metadata, parameters and stored
 payloads.  The port's search paths can then be held against the
-reference's on one index.
+reference's on one index.  :func:`lm_params_from_reference` turns the
+reference LM's parameter tree (nested dicts, tuples and lists of numpy
+arrays) into the port's ``LM`` state, so both packages run one set of
+weights.
 """
 from __future__ import annotations
 
@@ -70,3 +73,42 @@ def graph_index_from_reference(
         dtype=np.dtype(meta.dtype), node_nbytes=int(meta.node_nbytes),
         params=params)
     return GraphIndex(port_meta, store, device=device)
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            _flatten(sub, f"{prefix}{key}.", out)
+    else:
+        out[prefix[:-1]] = torch.from_numpy(
+            np.array(tree, dtype=np.float32))
+
+
+def lm_params_from_reference(cfg, params) -> dict[str, torch.Tensor]:
+    """The port's ``LM`` state (``load_state_dict``) of a reference LM's
+    parameters.  The reference scans a repeating unit of layers whose
+    parameters are stacked along a leading axis: repetition ``r`` of unit
+    slot ``j`` becomes layer ``r * len(unit) + j``, and the tail layers
+    follow."""
+    from repro_torch.models.transformer import unit_structure
+
+    unit, n_rep, tail = unit_structure(cfg)
+    blocks = params["blocks"]
+    layers = [None] * cfg.n_layers
+    for j, stacked in enumerate(blocks["unit"]):
+        for r in range(n_rep):
+            layers[r * len(unit) + j] = _index_tree(stacked, r)
+    for i, block in enumerate(blocks["tail"]):
+        layers[n_rep * len(unit) + i] = block
+    state: dict[str, torch.Tensor] = {}
+    _flatten({key: val for key, val in params.items() if key != "blocks"},
+             "", state)
+    for i, block in enumerate(layers):
+        _flatten(block, f"blocks.{i}.", state)
+    return state
+
+
+def _index_tree(tree, r: int):
+    if isinstance(tree, dict):
+        return {key: _index_tree(sub, r) for key, sub in tree.items()}
+    return np.asarray(tree)[r]

@@ -1,0 +1,161 @@
+"""The decoder stack: one module per layer.
+
+Counterpart of ``repro.models.transformer``.  The reference stacks the
+parameters of a repeating unit of layers along a leading axis and scans
+over it (dense: [attn]; mamba2: [ssm]; recurrentgemma: [rglru, rglru,
+attn] with a 2-layer tail; vlm: [attn x4, cross]).  Here the stack is a
+``ModuleList`` of every layer in order: layer ``r * len(unit) + j`` is the
+reference's unit slot ``j`` at repetition ``r``, and the tail follows.
+
+Serving caches are a list with one entry per layer: ``(k, v)`` for an
+attention or cross layer, ``{"state", "conv"}`` for SSM and ``{"h",
+"conv"}`` for RG-LRU.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (MLP, Attention, MoE, _qkv, _sdpa,
+                                       attention, attention_decode,
+                                       attention_prefill, cross_attention,
+                                       mlp, moe, rmsnorm)
+
+
+# --------------------------------------------------------------- structure
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    return [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+
+
+def unit_structure(cfg: ModelConfig) -> tuple[list[str], int, list[str]]:
+    """(unit kinds, n_repetitions, tail kinds)."""
+    kinds = layer_kinds(cfg)
+    if cfg.block_pattern:
+        unit = list(cfg.block_pattern)
+    elif cfg.cross_attn_period:
+        unit = kinds[: cfg.cross_attn_period]
+    else:
+        unit = kinds[:1]
+    n_rep = len(kinds) // len(unit)
+    tail = kinds[n_rep * len(unit):]
+    return unit, n_rep, tail
+
+
+def attention_window(cfg: ModelConfig) -> int:
+    """The local window of the self-attention layers (0: global)."""
+    return cfg.local_window if cfg.block_pattern else 0
+
+
+# ------------------------------------------------------------------ layers
+
+class Block(nn.Module):
+    """One layer; its submodules carry the reference's parameter names."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, gen, device=None):
+        super().__init__()
+        self.kind = kind
+        if kind == "ssm":
+            self.ssm = ssm_mod.SSM(cfg, gen, device)
+        elif kind == "rglru":
+            self.rec = rg.RGLRU(cfg, gen, device)
+            self.ffn = MLP(cfg, gen, device=device)
+        elif kind == "cross":
+            self.attn = Attention(cfg, gen, cross=True, device=device)
+            self.ffn = MLP(cfg, gen, device=device)
+        else:
+            self.attn = Attention(cfg, gen, device=device)
+            self.ffn = (MoE(cfg, gen, device) if cfg.n_experts
+                        else MLP(cfg, gen, device=device))
+
+
+def _ffn(p: Block, cfg: ModelConfig, x):
+    return (moe if cfg.n_experts else mlp)(p.ffn, cfg, x)
+
+
+def _apply_block(p: Block, cfg: ModelConfig, x, positions, ctx):
+    kind = p.kind
+    if kind == "ssm":
+        return ssm_mod.ssm_forward(p.ssm, cfg, x)
+    if kind == "rglru":
+        x = rg.rglru_forward(p.rec, cfg, x)
+        return mlp(p.ffn, cfg, x)
+    if kind == "cross":
+        x = cross_attention(p.attn, cfg, x, ctx)
+        return mlp(p.ffn, cfg, x)
+    x = attention(p.attn, cfg, x, positions, window=attention_window(cfg))
+    return _ffn(p, cfg, x)
+
+
+def stack_forward(blocks, cfg: ModelConfig, x, positions, ctx=None):
+    for p in blocks:
+        x = _apply_block(p, cfg, x, positions, ctx)
+    return x
+
+
+# ------------------------------------------------------------- serving ---
+
+def _block_prefill(p: Block, cfg: ModelConfig, x, positions, ctx):
+    kind = p.kind
+    if kind == "ssm":
+        return ssm_mod.ssm_prefill(p.ssm, cfg, x)
+    if kind == "rglru":
+        x, cache = rg.rglru_prefill(p.rec, cfg, x)
+        return mlp(p.ffn, cfg, x), cache
+    if kind == "cross":
+        x = cross_attention(p.attn, cfg, x, ctx)
+        # cache the projected image K/V once (fixed during decode)
+        c = rmsnorm(p.attn.kv_norm, ctx)
+        _, k, v = _qkv(p.attn, cfg, c, c)
+        return mlp(p.ffn, cfg, x), (k, v)
+    window = attention_window(cfg)
+    x, (k, v) = attention_prefill(p.attn, cfg, x, positions, window=window)
+    if window:
+        # keep only the ring window, rolled so position p sits at slot
+        # p % window (the layout attention_decode's ring writes expect)
+        S = k.shape[1]
+        if S >= window:
+            k = torch.roll(k[:, -window:], S % window, dims=1)
+            v = torch.roll(v[:, -window:], S % window, dims=1)
+    return _ffn(p, cfg, x), (k, v)
+
+
+def _block_decode(p: Block, cfg: ModelConfig, x, pos: int, cache, ctx):
+    kind = p.kind
+    if kind == "ssm":
+        return ssm_mod.ssm_decode(p.ssm, cfg, x, cache)
+    if kind == "rglru":
+        x, cache = rg.rglru_decode(p.rec, cfg, x, cache)
+        return mlp(p.ffn, cfg, x), cache
+    if kind == "cross":
+        a = p.attn
+        k, v = cache
+        h = rmsnorm(a.norm, x)
+        q = torch.einsum("bsd,dhk->bshk", h, a.wq.to(x.dtype))
+        if cfg.qk_norm:
+            q = rmsnorm(a.q_norm, q)
+        o = _sdpa(q, k.to(x.dtype), v.to(x.dtype), None, cfg.n_kv_heads)
+        x = x + torch.einsum("bshk,hkd->bsd", o, a.wo.to(x.dtype))
+        return mlp(p.ffn, cfg, x), cache
+    x, cache = attention_decode(p.attn, cfg, x, cache, pos,
+                                window=attention_window(cfg))
+    return _ffn(p, cfg, x), cache
+
+
+def stack_prefill(blocks, cfg: ModelConfig, x, positions, ctx=None):
+    caches = []
+    for p in blocks:
+        x, c = _block_prefill(p, cfg, x, positions, ctx)
+        caches.append(c)
+    return x, caches
+
+
+def stack_decode(blocks, cfg: ModelConfig, x, pos: int, caches, ctx=None):
+    new = []
+    for p, c in zip(blocks, caches):
+        x, nc = _block_decode(p, cfg, x, pos, c, ctx)
+        new.append(nc)
+    return x, new

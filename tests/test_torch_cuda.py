@@ -368,3 +368,81 @@ def test_adc_lookup_kernel_refuses_what_it_cannot_take(dev):
     big = torch.zeros((4, pq_adc.MAX_M + 1), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         pq_adc.adc_lookup(big, torch.zeros((pq_adc.MAX_M + 1, 256), device=dev))
+
+
+# ----------------------------------------- the LM stack and distributed --
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-1.3b", "recurrentgemma-2b",
+                                  "llama-3.2-vision-11b", "dbrx-132b",
+                                  "musicgen-medium"])
+def test_lm_on_the_card_matches_the_cpu(dev, arch):
+    """One seed, one set of weights on both; logits, prefill and decode on
+    the card (f32, no TF32) against the CPU's."""
+    from repro_torch.configs.archs import ARCHS, smoke
+    from repro_torch.kernels.ref import full_f32_matmul
+    from repro_torch.models.model import LM
+    from repro_torch.serve.decode import _grow_attention_caches
+
+    cfg = smoke(ARCHS[arch])
+    rng = np.random.default_rng(0)
+    if cfg.family == "audio":
+        batch = {"frames": rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 20))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    key = "frames" if cfg.family == "audio" else "tokens"
+    outs = []
+    for device in ("cpu", dev):
+        lm = LM(cfg, seed=0, device=device)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with torch.no_grad(), full_f32_matmul():
+            full = lm.logits(b).cpu()
+            lp, caches = lm.prefill({**b, key: b[key][:, :16]})
+            caches = _grow_attention_caches(lm, caches, 20)
+            steps = [lp[:, 0].cpu()]
+            for t in range(16, 20):
+                lt, caches = lm.decode_step({**b, key: b[key][:, t:t + 1]}, t, caches)
+                steps.append(lt[:, 0].cpu())
+        outs.append((full, torch.stack(steps)))
+    (cf, cs), (gf, gs) = outs
+    torch.testing.assert_close(gf, cf, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gs, cs, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_steps_one_nccl_rank_match_gloo_on_the_cpu(dev, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import sharded_kmeans_step, sharded_search_step
+
+    rng = np.random.default_rng(0)
+    L, M, D, B = 256, 16, 32, 64
+    cents = rng.normal(size=(L, D)).astype(np.float32)
+    vecs = (cents[:, None] + rng.normal(0, 0.1, (L, M, D))).astype(np.float32)
+    ids = np.arange(L * M, dtype=np.int32).reshape(L, M)
+    ids[rng.random((L, M)) < 0.1] = -1
+    q = (cents[rng.choice(L, B)] + rng.normal(0, 0.05, (B, D))).astype(np.float32)
+    norms = (vecs ** 2).sum(-1)
+    x = vecs.reshape(-1, D)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        arrays = (cents, vecs, ids, norms, q)
+        before = distance.l2_distance.launches
+        gi, gd = sharded_search_step(nprobe_local=8, k=10)(
+            *(torch.from_numpy(a).to(dev) for a in arrays))
+        assert distance.l2_distance.launches == before + 1
+        wi, wd = sharded_search_step(cpu_group, nprobe_local=8, k=10)(
+            *(torch.from_numpy(a) for a in arrays))
+        assert torch.equal(gi.cpu(), wi)
+        torch.testing.assert_close(gd.cpu(), wd, rtol=1e-5, atol=1e-4)
+        gc = sharded_kmeans_step()(torch.from_numpy(x).to(dev),
+                                   torch.from_numpy(cents).to(dev))
+        wc = sharded_kmeans_step(cpu_group)(torch.from_numpy(x),
+                                            torch.from_numpy(cents))
+        torch.testing.assert_close(gc.cpu(), wc, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

@@ -300,6 +300,13 @@ COPIED = [
     "tuning/recommend.py", "tuning/fleet.py", "tuning/tier.py",
     "tuning/tenancy.py", "tuning/ingest.py", "tuning/__init__.py",
     "tuning/__main__.py",
+    "configs/__init__.py", "configs/base.py", "configs/archs.py",
+    "configs/shapes.py", "configs/dbrx_132b.py", "configs/gemma_2b.py",
+    "configs/internlm2_20b.py", "configs/llama32_vision_11b.py",
+    "configs/mamba2_1p3b.py", "configs/moonshot_16b_a3b.py",
+    "configs/musicgen_medium.py", "configs/qwen3_32b.py",
+    "configs/recurrentgemma_2b.py", "configs/starcoder2_7b.py",
+    "data/pipeline.py",
 ]
 
 #: module -> (top-level definitions of the reference that the port leaves
