@@ -2,14 +2,14 @@
 """Drive the PyTorch/H100 port's main paths once on the card, and check them.
 
 Two index paths, both on deep-analog data (DEEP10M's shape, 96-d float32),
-and the LM serving path:
+and the LM serving and training paths:
 
 * the SPANN cluster index on the device, at the size of the standard 1M
   ANN sets: 1,000,000 vectors and 10,000 queries;
 * the DiskANN graph index at 200,000 vectors and 2,000 queries (cut from
   1M: the build's RobustPrune is host numpy, as in the reference);
 * retrieval-augmented generation with gemma-2b at its full width over a
-  4,096-document corpus.
+  4,096-document corpus, and gemma-2b's training steps at that width.
 
 1. build the three CUDA kernels from this checkout's sources (one nvcc
    each, all started together);
@@ -66,11 +66,11 @@ and the LM serving path:
    inserts are stitched in through ``adc_lookup``).  Steps 8-9 rewrite
    the indexes' stores, so they come last;
 10. ``python -m repro_torch.fleet`` on the card as a user runs it (the
-   committed calibration table) and with ``--device cpu``: the cluster
-   fleet twice, which must give the same JSON; the graph fleet, which on
-   the CPU must give the reference's 60.3254 virtual queries/s; the write
-   path (``--scenario rw``) twice and on the CPU, and ``--tenants`` on the
-   card and on the CPU, each of which must give one JSON;
+   committed calibration table): the cluster fleet twice, which must give
+   the same JSON; the graph fleet, which must give the reference's 60.3254
+   virtual queries/s; the write path (``--scenario rw``) and ``--tenants``,
+   each of which must give one JSON (the ``--device cpu`` runs are
+   the CPU parity tests', ``tests/test_torch_serving.py``);
 11. the auto-tuner (``repro_torch.tuning``) at the CLI's defaults (n =
    1,000,000 screened, dim 960): first ``l2_topk`` at a rung's ground truth
    (56 x 3,000 x 960, k = 10; each call's device time beside the plain
@@ -80,10 +80,9 @@ and the LM serving path:
    the seven commands of ``docs/tuning.md`` once each on the card, in this
    process so that the launch counts see the tuner's kernels (the rungs'
    and sweeps' builds and ground truths, a graph candidate's ADC rounds);
-   ``--budget screen``, the quick index run and ``--tune-window`` again
-   with ``--device cpu`` (the screen, which measures no index, must give
-   the card's JSON); and the quick index run as ``python -m
-   repro_torch.tuning``, which must print one JSON;
+   ``--budget screen`` again with ``--device cpu`` (it measures no index,
+   so it must give the card's JSON); and the quick index run as ``python
+   -m repro_torch.tuning``, which must print one JSON;
 12. retrieval-augmented generation (``launch/serve.py``'s pipeline) at
    gemma-2b's full width (18 layers, d_model 2,048, vocab 256,000, bf16
    activations over f32 weights drawn from seed 0 on the host): embed 4,096
@@ -94,7 +93,18 @@ and the LM serving path:
    the teacher-forced full forward in f32 (no TF32) and in bf16; ``l2_topk``
    at the closure's and the ground truth's shapes against its plain
    version; then ``python -m repro_torch.launch.serve`` on the card and
-   with ``--device cpu``.
+   with ``--device cpu``;
+13. training (``launch/train.py``'s ``build`` and ``train``, the runner,
+   AdamW, remat) at gemma-2b's full width on step 12's weights: 6 steps at
+   batch 8 x 256 tokens with finite losses and gradient norms, step 0's
+   loss equal to ``lm.loss`` of its batch; ms a step (CUDA events),
+   tokens/s, peak memory, the optimizer's share, one step under the
+   profiler, the step's operations and bytes bounds; a 1-layer model at
+   gemma-2b's widths one step on the card against the CPU (f32); at the
+   smoke config 30 steps with a falling loss, and a SIGTERM preemption
+   whose resume ends on the uninterrupted run's parameters; then
+   ``python -m repro_torch.launch.train --smoke --steps 3`` on the card.
+   The training path launches none of the three kernels.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -820,10 +830,23 @@ def main(argv=None) -> int:
 
     # ---- 12. retrieval-augmented generation at gemma-2b's full width ----
     from repro_torch.configs.archs import ARCHS
-    rag(dev, peaks, kernels, report, launches, ARCHS["gemma-2b"], RAG_CORPUS)
+    gemma = ARCHS["gemma-2b"]
+    params = rag(dev, peaks, kernels, report, launches, gemma, RAG_CORPUS)
     t = phase("RAG at gemma-2b's full width", t)
     serve_cli(report)
     t = phase("serve CLI on the card and the CPU", t)
+
+    # ---- 13. training at gemma-2b's full width -------------------------
+    first_layer = {k: v.cpu() for k, v in params.items()
+                   if not k.startswith("blocks.") or k.startswith("blocks.0.")}
+    train_full(peaks, report, launches, gemma, params)
+    t = phase("training at gemma-2b's full width", t)
+    train_one_layer(dev, report, gemma, first_layer)
+    t = phase("training: one layer at gemma-2b's widths, card vs CPU", t)
+    train_smoke(dev, report, launches)
+    t = phase("training: smoke config, preemption and resume", t)
+    train_cli(report)
+    t = phase("train CLI on the card", t)
 
     for kern in kernels:
         kern["launches"] = sum(c[kern["name"]] for c in launches.values())
@@ -1389,20 +1412,18 @@ GRAPH_CLI_QPS = 60.3254
 
 
 def fleet_cli(report) -> None:
-    """``python -m repro_torch.fleet`` as a user runs it on the card, and
-    with ``--device cpu``: the cluster fleet twice (the JSON, ``meta``
-    aside, must be the same) and once on the CPU (printed, not required:
-    near-tie closure pairs may differ); the graph fleet on the card and on
-    the CPU, which must give the reference's virtual queries/s; the write
-    path (``docs/ingest.md``'s command) twice and on the CPU, and the
-    tenants of ``docs/tenancy.md`` with a weighted 4 MiB cache on the card
-    and on the CPU: each must give one JSON."""
+    """``python -m repro_torch.fleet`` on the card as a user runs it: the
+    cluster fleet twice (the JSON, ``meta`` aside, must be the same), the
+    graph fleet, which must give the reference's virtual queries/s, the
+    write path (``docs/ingest.md``'s command) and the tenants of
+    ``docs/tenancy.md`` with a weighted 4 MiB cache, each of which must
+    give one JSON.  (The ``--device cpu`` runs are the CPU parity tests':
+    ``tests/test_torch_serving.py`` holds them to the reference.)"""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     tmp = tempfile.TemporaryDirectory()
     spec = Path(tmp.name) / "tenants.json"
     spec.write_text(json.dumps(CLI_TENANTS))
-    cpu = ["--device", "cpu"]
     cluster = ["--shards", "4", "--replicas", "2", "--backend", "kernel"]
     graph = ["--index", "graph", "--hedge", "--replicas", "2"]
     rw = ["--scenario", "rw", "--write-rate", "400", "--n-updates", "200",
@@ -1411,10 +1432,7 @@ def fleet_cli(report) -> None:
                "weighted"]
     runs = {}
     for name, flags in (("cluster", cluster), ("cluster_again", cluster),
-                        ("cluster_cpu", cluster + cpu),
-                        ("graph", graph), ("graph_cpu", graph + cpu),
-                        ("rw", rw), ("rw_again", rw), ("rw_cpu", rw + cpu),
-                        ("tenants", tenants), ("tenants_cpu", tenants + cpu)):
+                        ("graph", graph), ("rw", rw), ("tenants", tenants)):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.fleet", "--compact", *flags],
@@ -1448,24 +1466,13 @@ def fleet_cli(report) -> None:
     tmp.cleanup()
     require(runs["cluster"] == runs["cluster_again"],
             "the fleet CLI's cluster JSON differs between two runs on the card")
-    same_cpu = runs["cluster"] == runs["cluster_cpu"]
-    report["fleet_cli"]["cluster_equals_cpu"] = same_cpu
-    print(f"fleet CLI: two cluster runs on the card identical; equal to "
-          f"--device cpu: {same_cpu}")
     g = report["fleet_cli"]
-    print(f"fleet CLI graph: {g['graph_cpu']['qps']} virtual queries/s with "
-          f"--device cpu (the reference's {GRAPH_CLI_QPS}), {g['graph']['qps']} "
-          f"on the card; JSON equal: {runs['graph'] == runs['graph_cpu']}")
-    require(g["graph_cpu"]["qps"] == GRAPH_CLI_QPS,
-            f"the graph CLI with --device cpu gives {g['graph_cpu']['qps']} "
-            f"virtual queries/s, not the reference's {GRAPH_CLI_QPS}")
-    require(runs["rw"] == runs["rw_again"] == runs["rw_cpu"],
-            "the fleet CLI's rw JSON differs between two runs on the card or "
-            "from --device cpu")
-    require(runs["tenants"] == runs["tenants_cpu"],
-            "the fleet CLI's --tenants JSON differs from --device cpu")
-    print("fleet CLI: rw identical twice on the card and on the CPU; "
-          "--tenants identical on the card and on the CPU")
+    print(f"fleet CLI: two cluster runs on the card identical; graph "
+          f"{g['graph']['qps']} virtual queries/s (the reference's "
+          f"{GRAPH_CLI_QPS}); rw and --tenants one JSON each")
+    require(g["graph"]["qps"] == GRAPH_CLI_QPS,
+            f"the graph CLI on the card gives {g['graph']['qps']} virtual "
+            f"queries/s, not the reference's {GRAPH_CLI_QPS}")
 
 
 #: the tuner's shapes: a rung's exact ground truth at dim 960 (the largest
@@ -1550,10 +1557,10 @@ TUNER_RUNS = (
      {"recommendation", "screened", "refined"}),
     ("write", ["--write-rate", "400"], {"recommendation", "ingest"}),
 )
-#: runs repeated with ``--device cpu``; only the screen measures no index,
-#: so only its JSON must equal the card's (closure pairs at the threshold
-#: may flip between the card and the CPU)
-TUNER_CPU = ("screen", "index", "window")
+#: runs repeated with ``--device cpu``: the screen measures no index, so its
+#: JSON must equal the card's (the index runs' CPU parity with the
+#: reference is the CPU parity tests', ``tests/test_torch_tuning_cli.py``)
+TUNER_CPU = ("screen",)
 
 
 def _tuner_json(argv: list[str]) -> tuple[dict, float]:
@@ -1797,14 +1804,15 @@ def _logit_check(got, want, what):
             "max_err_less_rtol": excess}
 
 
-def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> None:
+def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
     """``launch/serve.py``'s pipeline on the card at ``cfg``'s width: embed
     ``corpus`` documents and 64 requests, index them with
     ``ClusterIndex.build`` (closure through ``l2_topk``), retrieve, generate
     8 tokens a request; recall@4 against ``exact_topk``; prefill and decode
     time of 16 requests; the logits of 4 against the f32 and the bf16 full
     forward, teacher-forced; ``l2_topk`` at the closure's and the ground
-    truth's shapes against its plain version."""
+    truth's shapes against its plain version.  Returns the LM's weights
+    (a state dict on the card), for step 13."""
     import argparse
     import dataclasses
 
@@ -1958,8 +1966,10 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> None:
         "generation_profile": gen_profile,
         "logit_checks": checks, "l2_topk": cases,
         "launches": {k: launches[k] for k in ("rag_serve", "rag_ground_truth")}}
+    params = lm.state_dict()
     del run, lm, vecs, qv, cents
     torch.cuda.empty_cache()
+    return params
 
 
 def serve_cli(report) -> None:
@@ -1991,6 +2001,337 @@ def serve_cli(report) -> None:
     same = texts["card"] == texts["cpu"]
     report["serve_cli"]["same_text"] = same
     print(f"serve CLI: the card's text equals --device cpu's: {same}")
+
+
+# ---- 13. training ---------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 256, 8
+TRAIN_PARAMS = 2_506_172_416          # gemma-2b at its full width
+#: step 0's loss in the run against ``lm.loss`` of its batch under no_grad:
+#: the same bf16 products on the same card (the checkpointed units only
+#: recompute), so one f32 rounding of the mean
+TRAIN_LOSS_RTOL = 1e-5
+#: one step of a 1-layer model at gemma-2b's widths, f32 without TF32, card
+#: against CPU: loss and grad_norm (sums over 2,048-256,000 terms in
+#: another order), each gradient against its leaf's max |g|, and m = (1 -
+#: b1) g; the parameters within 2 lr, since step 1's g/|g| flips with the
+#: sign of a near-zero gradient
+ONE_LAYER_RTOL = 1e-4
+ONE_LAYER_SEQ, ONE_LAYER_BATCH = 64, 2
+SMOKE_TRAIN_STEPS, PREEMPT_AT = 30, 12
+#: the resumed run's parameters against the uninterrupted run's on one card:
+#: the checkpoint round trip is exact, so only a nondeterministic reduction
+#: on the card could move them
+RESUME_ATOL = 1e-5
+
+
+def train_bounds(cfg, n_params: int, batch: int, seq: int, peaks,
+                 bf16_peak: float) -> dict:
+    """The least time of one training step of the dense ``cfg`` with remat:
+    operations, the matrix products of 4 forward passes (the forward, the
+    units' and loss chunks' recompute, and a backward of 2) at the card's
+    dense BF16 peak, dense attention counting all seq x seq scores (they are
+    masked, not skipped); bytes, the step function's inputs read once and
+    outputs written once (f32 parameters, m and v: 24 bytes a parameter;
+    the gradients are intermediates)."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    glu = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    layer = 2 * D * hd * (2 * H + 2 * KV) + 2 * glu * D * cfg.d_ff + 4 * seq * H * hd
+    flops = 4.0 * batch * seq * (cfg.n_layers * layer + 2 * D * cfg.vocab)
+    nbytes = 24.0 * n_params
+    ops_ms, bytes_ms = flops / bf16_peak * 1e3, nbytes / peaks[1] * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def train_full(peaks, report, launches, cfg, params: dict) -> None:
+    """``launch/train.py``'s ``build`` and ``train`` at ``cfg``'s full width
+    on the card, on ``params`` (step 12's weights, which this empties): 6
+    steps at batch 8 x 256; each step and its optimizer update timed with
+    CUDA events, the peak memory, one more step under the profiler."""
+    import statistics
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.hw import card_bf16_peak, smi_line
+    from repro_torch.launch import train as lt
+    from repro_torch.train import optimizer as opt
+
+    assert cfg.family == "dense", cfg.family
+    smi = smi_line(0)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    args = lt.build_parser().parse_args([
+        "--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--seq",
+        str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--ckpt", tmp.name])
+    try:
+        lm = lt.build(args, params)                  # the default device
+        params.clear()
+        torch.cuda.empty_cache()
+        n_params = sum(p.numel() for p in lm.parameters())
+        require(lm.device.type == "cuda" and lm.cfg == cfg
+                and n_params == TRAIN_PARAMS, f"training built {lm.cfg.name}, "
+                f"{n_params} parameters on {lm.device}")
+        with torch.no_grad():
+            want0 = float(lm.loss(lt.batch_fn(lm.cfg, args, lm.device)(0)))
+
+        step_ev, opt_ev, norms = [], [], []
+        real_make, real_apply = lt.make_train_step, opt.apply_updates
+
+        def events():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            return ev
+
+        def timed_apply(*a, **kw):
+            ev = events()
+            out = real_apply(*a, **kw)
+            ev[1].record()
+            opt_ev.append(ev)
+            return out
+
+        def timed_make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def timed_step(lm, state, batch):
+                ev = events()
+                out = step(lm, state, batch)
+                ev[1].record()
+                step_ev.append(ev)
+                norms.append(out[2]["grad_norm"])
+                return out
+            return timed_step
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(lt, "make_train_step", timed_make), \
+                mock.patch.object(opt, "apply_updates", timed_apply):
+            lm, opt_state, rep = lt.train(lm, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launches["train_full"] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        norms = [float(g) for g in norms]
+        require(rep.steps_run == TRAIN_STEPS and len(rep.losses) == TRAIN_STEPS
+                and all(math.isfinite(x) for x in rep.losses + norms),
+                f"training: losses {rep.losses}, grad norms {norms}")
+        require(abs(rep.losses[0] - want0) <= TRAIN_LOSS_RTOL * abs(want0),
+                f"training: step 0's loss {rep.losses[0]} is not lm.loss of "
+                f"its batch, {want0}")
+        require(not any(c.values()), f"training launched {c}")
+        step_ms = [a.elapsed_time(b) for a, b in step_ev]
+        opt_ms = [a.elapsed_time(b) for a, b in opt_ev]
+        med = statistics.median(step_ms[1:])
+        med_opt = statistics.median(opt_ms[1:])
+        tokens_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+        bounds = train_bounds(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ, peaks,
+                              card_bf16_peak(torch.cuda.get_device_name(0)))
+        print(f"training {cfg.name} at its full width ({n_params} parameters, "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat, bf16 over f32 "
+              f"weights) on {smi}: losses {[round(x, 4) for x in rep.losses]}, "
+              f"grad norms {[round(x, 4) for x in norms]}; step 0's loss "
+              f"{rep.losses[0]!r} vs lm.loss {want0!r}; {wall:.3f} s for "
+              f"{TRAIN_STEPS} steps", flush=True)
+        print(f"training step, median of steps 2-{TRAIN_STEPS} (CUDA events): "
+              f"{med:.3f} ms ({[round(x, 3) for x in step_ms]}), "
+              f"{tokens_s:.1f} tokens/s; AdamW {med_opt:.3f} ms "
+              f"({[round(x, 3) for x in opt_ms]}), {med_opt / med:.3f} of a "
+              f"step; peak memory {peak} bytes ({peak / 2**30:.2f} GiB); bound "
+              f"{bounds['bound_ms']:.3f} ms ({bounds['bound_by']}: "
+              f"{bounds['flops']:.4g} FLOP at the bf16 peak {bounds['ops_ms']:.3f} "
+              f"ms, {bounds['bytes']:.4g} bytes {bounds['bytes_ms']:.3f} ms), "
+              f"{bounds['bound_ms'] / med:.3f} of it; launches {c}", flush=True)
+
+        # one more step under the profiler: the card's busy time against the
+        # wall time, and the kernels that take it
+        step = real_make(lm, opt.OptimizerConfig(total_steps=args.steps))
+        batch = lt.batch_fn(lm.cfg, args, lm.device)(TRAIN_STEPS)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(lm, opt_state, batch)
+            float(m["loss"])
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in kern)
+        # cuBLAS's products (nvjet / gemm / cutlass kernels) against the rest
+        mm_us = sum(e.self_device_time_total for e in kern
+                    if any(t in e.key.lower() for t in ("nvjet", "gemm",
+                                                        "cutlass")))
+        profile = {"wall_us": wall_us, "device_busy_us": busy_us,
+                   "idle_share": 1 - busy_us / wall_us,
+                   "busy_share_of_step": busy_us / (med * 1e3),
+                   "matmul_us": mm_us, "kernels": sum(e.count for e in kern),
+                   "top_kernels_us": [(e.key[:60], round(e.self_device_time_total, 1))
+                                      for e in kern[:8]]}
+        print(f"training step under the profiler: wall {wall_us:.0f} us, device "
+              f"busy {busy_us:.0f} us (idle share {profile['idle_share']:.3f}; "
+              f"{profile['busy_share_of_step']:.3f} of the unprofiled median "
+              f"step), matrix products {mm_us:.0f} us, "
+              f"{profile['kernels']} kernels; top (us): "
+              f"{profile['top_kernels_us']}", flush=True)
+        report["train"] = {
+            "config": cfg.name, "parameters": n_params, "card": smi,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": rep.losses,
+            "grad_norms": norms, "loss0_no_grad": want0, "wall_s": wall,
+            "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": tokens_s,
+            "adamw_ms": opt_ms, "adamw_ms_median": med_opt,
+            "adamw_share": med_opt / med, "peak_bytes": peak,
+            "bounds": bounds, "profile": profile, "launches": c}
+        del lm, opt_state, step, batch, m
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def train_one_layer(dev, report, cfg, state: dict) -> None:
+    """One train step of a 1-layer model at ``cfg``'s widths (f32
+    activations, no TF32, remat on) on the card and on the CPU from the
+    weights ``state`` (the embedding, layer 0 and the final norm of step
+    12's, on the host) and one batch, held to ``ONE_LAYER_RTOL``."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.ref import full_f32_matmul
+    from repro_torch.models.model import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    batch = TokenPipeline(DataConfig(vocab=cfg1.vocab, seq_len=ONE_LAYER_SEQ,
+                                     global_batch=ONE_LAYER_BATCH)).batch(0)
+    ocfg = opt.OptimizerConfig(total_steps=TRAIN_STEPS)
+    out = []
+    for device in ("cpu", dev):
+        t0 = time.perf_counter()
+        lm = LM(cfg1, seed=None, device=device)
+        lm.load_state_dict(state)
+        st = opt.init_state(dict(lm.named_parameters()))
+        with full_f32_matmul():
+            lm, st, m = make_train_step(lm, ocfg)(lm, st, {
+                k: torch.from_numpy(v).to(device, torch.long)
+                for k, v in batch.items()})
+        out.append((
+            {k: float(v) for k, v in m.items()},
+            {k: p.grad.cpu() for k, p in lm.named_parameters()},
+            {k: v.cpu() for k, v in lm.state_dict().items()},
+            {k: v.cpu() for k, v in st["m"].items()}, time.perf_counter() - t0))
+        del lm, st
+    torch.cuda.empty_cache()
+    (cm, cg, cp, cmom, cs), (gm, gg, gp, gmom, gs) = out
+    errs = {"loss": abs(gm["loss"] / cm["loss"] - 1),
+            "grad_norm": abs(gm["grad_norm"] / cm["grad_norm"] - 1),
+            "grad": max(float((gg[k] - cg[k]).abs().max() / cg[k].abs().max())
+                        for k in cg),
+            "m": max(float((gmom[k] - cmom[k]).abs().max() / cmom[k].abs().max())
+                     for k in cmom),
+            "param_abs": max(float((gp[k] - cp[k]).abs().max()) for k in cp)}
+    lr = cm["lr"]
+    print(f"training, 1 layer at {cfg.name}'s widths ({sum(v.numel() for v in state.values())} "
+          f"parameters, batch {ONE_LAYER_BATCH} x {ONE_LAYER_SEQ}, f32 without "
+          f"TF32): card loss {gm['loss']!r} vs CPU {cm['loss']!r}; relative "
+          f"errors {json.dumps(errs)}; lr {lr!r}; card {gs:.3f} s, CPU {cs:.3f} s",
+          flush=True)
+    require(max(errs["loss"], errs["grad_norm"], errs["grad"], errs["m"])
+            <= ONE_LAYER_RTOL and errs["param_abs"] <= 2 * lr + 1e-6,
+            f"training: one layer on the card differs from the CPU: {errs}")
+    report["train_one_layer"] = {"errors": errs, "lr": lr, "card_s": gs,
+                                 "cpu_s": cs, "loss": gm["loss"]}
+
+
+def train_smoke(dev, report, launches) -> None:
+    """The smoke config through the runner on the card: 30 steps whose loss
+    falls (``tests/test_train.py``'s test), and the same run preempted by
+    SIGTERM at step 12 and resumed, which must end on the uninterrupted
+    run's parameters within ``RESUME_ATOL``."""
+    import signal
+
+    from repro_torch.configs.archs import ARCHS, smoke
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.runner import RunnerConfig, run
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = smoke(ARCHS["gemma-2b"])
+    ocfg = opt.OptimizerConfig(peak_lr=3e-3, warmup_steps=5, total_steps=200)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                    global_batch=8, seed=0))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    before = signal.getsignal(signal.SIGTERM)
+
+    def runner(ckdir, preempt_at=None):
+        lm = LM(cfg, seed=0, device=dev)
+
+        def next_batch(s):
+            if s == preempt_at:
+                require(signal.getsignal(signal.SIGTERM) is not before,
+                        "the runner installed no SIGTERM handler")
+                os.kill(os.getpid(), signal.SIGTERM)
+            return {k: torch.from_numpy(v).to(dev, torch.long)
+                    for k, v in pipe.batch(s).items()}
+        return run(RunnerConfig(total_steps=SMOKE_TRAIN_STEPS,
+                                ckpt_dir=os.path.join(tmp.name, ckdir),
+                                ckpt_every=100, log_every=100),
+                   make_train_step(lm, ocfg), lm,
+                   opt.init_state(dict(lm.named_parameters())), next_batch,
+                   log=lambda *_: None)
+
+    reset()
+    whole, _, rep = runner("whole")
+    cut, _, rep_cut = runner("cut", PREEMPT_AT)
+    resumed, _, rep_res = runner("cut")
+    launches["train_smoke"] = counts()
+    first, last = np.mean(rep.losses[:5]), np.mean(rep.losses[-5:])
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        whole.state_dict().values(), resumed.state_dict().values()))
+    print(f"training, smoke config on the card: {SMOKE_TRAIN_STEPS} steps, mean "
+          f"loss of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+          f"preempted at step {rep_cut.final_step} ({rep_cut.steps_run} run), "
+          f"resumed for {rep_res.steps_run}: max |resumed - uninterrupted| "
+          f"parameter {diff!r}", flush=True)
+    require(last < first - 0.2, f"training: the smoke loss did not fall "
+            f"({first} -> {last})")
+    require(rep_cut.preempted and rep_cut.final_step == PREEMPT_AT + 1
+            and rep_res.steps_run == SMOKE_TRAIN_STEPS - PREEMPT_AT - 1
+            and rep_res.final_step == SMOKE_TRAIN_STEPS,
+            f"training: preemption at step {PREEMPT_AT} gave {rep_cut} then "
+            f"{rep_res}")
+    require(diff <= RESUME_ATOL, f"training: the resumed run's parameters "
+            f"differ from the uninterrupted run's by {diff}")
+    report["train_smoke"] = {"losses": rep.losses, "first5": first,
+                             "last5": last, "resume_max_abs_diff": diff}
+    tmp.cleanup()
+
+
+def train_cli(report) -> None:
+    """``python -m repro_torch.launch.train --smoke --steps 3`` on the card
+    as a user runs it: exit 0 and the reference's two lines."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckdir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--steps", "3", "--ckpt", ckdir],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"train CLI exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    require(lines[0].startswith("gemma-2b-smoke: ") and lines[-1].startswith(
+        "done: 3 steps, loss "), f"train CLI printed {proc.stdout!r}")
+    report["train_cli"] = {"wall_s": wall, "stdout": proc.stdout}
+    print(f"train CLI on the card, {wall:.3f} s:\n{proc.stdout.rstrip()}")
 
 
 if __name__ == "__main__":

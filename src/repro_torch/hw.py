@@ -9,18 +9,29 @@ from __future__ import annotations
 
 import subprocess
 
-# (FP32 FLOP/s outside the tensor cores, memory bytes/s) of the SXM parts
-# from NVIDIA's data sheets, by torch.cuda.get_device_name(); the rates
-# assume the 700 W power limit, which smi_line() reports beside them.
-PEAKS = (("H100 80GB HBM3", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+# (FP32 FLOP/s outside the tensor cores, memory bytes/s, dense BF16
+# tensor-core FLOP/s) of the SXM parts from NVIDIA's data sheets, by
+# torch.cuda.get_device_name(); the rates assume the 700 W power limit,
+# which smi_line() reports beside them.
+PEAKS = (("H100 80GB HBM3", 67e12, 3.35e12, 989e12),
+         ("H200", 67e12, 4.8e12, 989e12))
+
+
+def _row(name: str) -> tuple:
+    for row in PEAKS:
+        if row[0] in name:
+            return row
+    raise ValueError(f"no data-sheet peak for the card {name!r}")
 
 
 def card_peaks(name: str) -> tuple[float, float]:
     """``(fp32 FLOP/s, bytes/s)`` of the card called ``name``."""
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return flops, bw
-    raise ValueError(f"no data-sheet peak for the card {name!r}")
+    return _row(name)[1:3]
+
+
+def card_bf16_peak(name: str) -> float:
+    """Dense BF16 tensor-core FLOP/s of the card called ``name``."""
+    return _row(name)[3]
 
 
 def smi_line(index: int = 0) -> str:

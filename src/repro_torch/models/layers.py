@@ -29,12 +29,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def remat(fn, *args, **kwargs):
+    """``fn(*args)`` checkpointed while autograd records (its activations
+    are recomputed in the backward, as under ``jax.checkpoint``); a plain
+    call otherwise.  ``kwargs`` go to ``torch.utils.checkpoint``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def dense_init(gen: torch.Generator | None, shape, scale: float | None = None,
@@ -184,13 +194,35 @@ def _online_q_block(qch, kcs, vcs, qi: int, chunk: int, n_kv: int, G: int,
                                             ).to(qch.dtype)
 
 
+def _band_q_block(qch, kp, vp, ci: int, chunk: int, span: int, n_kv: int,
+                  G: int, hd: int, window: int, scale: float):
+    """Query chunk ``ci`` against its ``span``-long KV slice of the padded
+    ``kp``/``vp`` (local attention)."""
+    B = qch.shape[0]
+    dev = qch.device
+    start = ci * chunk                # in padded coords
+    ks = kp[:, start:start + span]
+    vs = vp[:, start:start + span]
+    qg = qch.reshape(B, chunk, n_kv, G, hd)
+    s = torch.einsum("bsngk,btnk->bngst", qg.float(), ks.float()) * scale
+    qpos = ci * chunk + torch.arange(chunk, device=dev)[:, None]
+    kpos = (ci * chunk + torch.arange(span, device=dev)[None, :]
+            - (span - chunk))
+    m = (kpos <= qpos) & (kpos > qpos - window) & (kpos >= 0)
+    s = torch.where(m[None, None, None], s, -1e30)
+    pr = torch.softmax(s, dim=-1).to(qch.dtype)
+    o = torch.einsum("bngst,btnk->bsngk", pr, vs)
+    return o.reshape(B, chunk, n_kv * G, hd)
+
+
 def _sdpa_chunked(q, k, v, n_kv: int, window: int = 0,
                   chunk: int | None = None):
     """Flash-style causal attention: a loop over query chunks; per q-chunk
     either a banded KV slice (local attention) or an online softmax over KV
     chunks (only its causal ones while there are at most
     ``CAUSAL_BLOCK_UNROLL`` q chunks).  Peak memory O(chunk^2) instead of
-    O(S*T).
+    O(S*T); under autograd each q chunk is checkpointed, so the backward
+    recomputes its scores instead of keeping them.
 
     q: (B,S,H,hd); k/v: (B,S,KV,hd).  Self-attention (S == T) only.
     """
@@ -203,29 +235,14 @@ def _sdpa_chunked(q, k, v, n_kv: int, window: int = 0,
     nq = S // chunk
     scale = hd ** -0.5
     qc = q.reshape(B, nq, chunk, H, hd).transpose(0, 1)
-    dev = q.device
 
     if window and window + chunk < S:
         # banded path: each q chunk attends to a fixed-size KV slice
         span = window + chunk
         kp = F.pad(k, (0, 0, 0, 0, span - chunk, 0))
         vp = F.pad(v, (0, 0, 0, 0, span - chunk, 0))
-        outs = []
-        for ci in range(nq):
-            start = ci * chunk            # in padded coords
-            ks = kp[:, start:start + span]
-            vs = vp[:, start:start + span]
-            qg = qc[ci].reshape(B, chunk, n_kv, G, hd)
-            s = torch.einsum("bsngk,btnk->bngst", qg.float(),
-                             ks.float()) * scale
-            qpos = ci * chunk + torch.arange(chunk, device=dev)[:, None]
-            kpos = (ci * chunk + torch.arange(span, device=dev)[None, :]
-                    - (span - chunk))
-            m = (kpos <= qpos) & (kpos > qpos - window) & (kpos >= 0)
-            s = torch.where(m[None, None, None], s, -1e30)
-            pr = torch.softmax(s, dim=-1).to(q.dtype)
-            o = torch.einsum("bngst,btnk->bsngk", pr, vs)
-            outs.append(o.reshape(B, chunk, H, hd))
+        outs = [remat(_band_q_block, qc[ci], kp, vp, ci, chunk, span, n_kv,
+                      G, hd, window, scale) for ci in range(nq)]
         return torch.stack(outs, dim=1).reshape(B, S, H, hd)
 
     kc = k.reshape(B, nq, chunk, KV, hd).transpose(0, 1)
@@ -234,9 +251,10 @@ def _sdpa_chunked(q, k, v, n_kv: int, window: int = 0,
     # causal KV chunks; past that, every q chunk runs over all of them and
     # masks, as the reference's scan does
     causal_only = 1 < nq <= CAUSAL_BLOCK_UNROLL
-    outs = [_online_q_block(qc[qi], kc[: qi + 1] if causal_only else kc,
-                            vc[: qi + 1] if causal_only else vc, qi, chunk,
-                            n_kv, G, hd, window, scale)
+    outs = [remat(_online_q_block, qc[qi],
+                  kc[: qi + 1] if causal_only else kc,
+                  vc[: qi + 1] if causal_only else vc, qi, chunk, n_kv, G,
+                  hd, window, scale)
             for qi in range(nq)]
     return torch.stack(outs, dim=1).reshape(B, S, H, hd)
 

@@ -26,11 +26,21 @@ from repro_torch.device import resolve_device
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import RMSNorm, _dtype, dense_init, rmsnorm
+from repro_torch.models.layers import (RMSNorm, _dtype, dense_init, remat,
+                                       rmsnorm)
 
 # sequence-chunk size of the chunked loss (the full (B, S, V) f32 logits of
 # a 256k-vocab model are not materialised at once)
 LOSS_CHUNK = 256
+
+
+def _chunk_nll(xs, head, ls):
+    """Summed next-token cross entropy (+ z-loss) of one sequence chunk."""
+    logits = (xs @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, ls[..., None].long())[..., 0]
+    nll = (logz - ll) + 1e-4 * (logz ** 2)
+    return nll.sum()
 
 
 class LM(nn.Module):
@@ -101,13 +111,11 @@ class LM(nn.Module):
         chunk = S // nc
         total = torch.zeros((), device=x.device)
         for c in range(nc):
-            xs = x[:, c * chunk:(c + 1) * chunk]
-            ls = labels[:, c * chunk:(c + 1) * chunk]
-            logits = (xs @ head).float()
-            logz = torch.logsumexp(logits, dim=-1)
-            ll = logits.gather(-1, ls[..., None].long())[..., 0]
-            nll = (logz - ll) + 1e-4 * (logz ** 2)
-            total = total + nll.sum()
+            # checkpointed: the backward recomputes a chunk's (b, chunk, V)
+            # f32 logits instead of keeping every chunk's (2.1 GB a chunk
+            # for a 256k vocabulary at batch 8)
+            total = total + remat(_chunk_nll, x[:, c * chunk:(c + 1) * chunk],
+                                  head, labels[:, c * chunk:(c + 1) * chunk])
         return total / (B * S)
 
     # ---------------------------------------------------------- serving --

@@ -6,6 +6,10 @@ over it (dense: [attn]; mamba2: [ssm]; recurrentgemma: [rglru, rglru,
 attn] with a 2-layer tail; vlm: [attn x4, cross]).  Here the stack is a
 ``ModuleList`` of every layer in order: layer ``r * len(unit) + j`` is the
 reference's unit slot ``j`` at repetition ``r``, and the tail follows.
+``stack_forward`` runs the layers a unit repetition at a time; with
+``cfg.remat`` each repetition is checkpointed (recomputed in the backward,
+under ``REMAT_POLICY``), as the reference's scan body is under
+``jax.checkpoint``.
 
 Serving caches are a list with one entry per layer: ``(k, v)`` for an
 attention or cross layer, ``{"state", "conv"}`` for SSM and ``{"h",
@@ -15,6 +19,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru as rg
@@ -22,7 +28,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MLP, Attention, MoE, _qkv, _sdpa,
                                        attention, attention_decode,
                                        attention_prefill, cross_attention,
-                                       mlp, moe, rmsnorm)
+                                       mlp, moe, remat, rmsnorm)
 
 
 # --------------------------------------------------------------- structure
@@ -90,8 +96,53 @@ def _apply_block(p: Block, cfg: ModelConfig, x, positions, ctx):
     return _ffn(p, cfg, x)
 
 
+# Optional remat policy for the unit checkpoint (a training knob):
+# None = full recompute of each unit in the backward;
+# "dots" = save the outputs of the products without batch dims (those with
+# the weights: aten ``mm``/``addmm``, and ``bmm`` over a batch of 1, which is
+# how ``einsum`` runs them), recompute the rest.  Attention's score and PV
+# products run as a ``bmm`` over (batch x kv-heads), so they are recomputed,
+# unless that is 1 (batch 1 of an MQA arch), when they are saved too.
+REMAT_POLICY: str | None = None
+
+
+def set_remat_policy(name: str | None) -> None:
+    global REMAT_POLICY
+    if name not in (None, "dots"):
+        raise ValueError(f"unknown remat policy {name!r}")
+    REMAT_POLICY = name
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _policy() -> dict:
+    if REMAT_POLICY == "dots":
+        return {"context_fn": lambda: create_selective_checkpoint_contexts(
+            _save_dots)}
+    return {}
+
+
 def stack_forward(blocks, cfg: ModelConfig, x, positions, ctx=None):
-    for p in blocks:
+    """The layers in order, a unit repetition at a time (the reference's
+    scan); with ``cfg.remat`` each repetition is checkpointed, the tail
+    layers are not."""
+    unit, n_rep, _ = unit_structure(cfg)
+    u = len(unit)
+
+    def unit_fn(h, r):
+        for p in blocks[r * u:(r + 1) * u]:
+            h = _apply_block(p, cfg, h, positions, ctx)
+        return h
+
+    for r in range(n_rep):
+        x = remat(unit_fn, x, r, **_policy()) if cfg.remat else unit_fn(x, r)
+    for p in blocks[n_rep * u:]:
         x = _apply_block(p, cfg, x, positions, ctx)
     return x
 

@@ -446,3 +446,59 @@ def test_sharded_steps_one_nccl_rank_match_gloo_on_the_cpu(dev, tmp_path):
         torch.testing.assert_close(gc.cpu(), wc, rtol=1e-5, atol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------- training --
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "gemma-2b", "internlm2-20b",
+                                  "llama-3.2-vision-11b", "mamba2-1.3b",
+                                  "moonshot-v1-16b-a3b", "musicgen-medium",
+                                  "qwen3-32b", "recurrentgemma-2b",
+                                  "starcoder2-7b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One train step (remat on) of each smoke config from one seed's
+    weights on the card and on the CPU, f32 without TF32: loss and
+    grad_norm at rtol 1e-4, each gradient within 1e-4 of its leaf's max
+    |g|, the parameters within 2 lr (step 1's g/|g| flips with the sign of
+    a near-zero gradient) and m within 1e-4 of (1 - b1) max |g|."""
+    import dataclasses
+
+    from repro_torch.configs.archs import ARCHS, smoke
+    from repro_torch.kernels.ref import full_f32_matmul
+    from repro_torch.models.model import LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(smoke(ARCHS[arch]), remat=True)
+    rng = np.random.default_rng(0)
+    batch = {"labels": rng.integers(0, cfg.vocab, (4, 32))}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((4, 32, cfg.d_model)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (4, 32))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (4, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    ocfg = opt.OptimizerConfig(peak_lr=3e-3, warmup_steps=5, total_steps=200)
+    out = []
+    for device in ("cpu", dev):
+        lm = LM(cfg, seed=0, device=device)
+        state = opt.init_state(dict(lm.named_parameters()))
+        with full_f32_matmul():
+            lm, state, m = make_train_step(lm, ocfg)(
+                lm, state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        grads = {k: p.grad.cpu() for k, p in lm.named_parameters() if p.grad is not None}
+        out.append((m, grads, {k: v.cpu() for k, v in lm.state_dict().items()},
+                    {k: v.cpu() for k, v in state["m"].items()}))
+    (cm, cg, cp, cmom), (gm, gg, gp, gmom) = out
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gm[key]), float(cm[key]), rtol=1e-4)
+    assert set(gg) == set(cg)
+    lr = float(cm["lr"])
+    for k in cg:
+        scale = float(cg[k].abs().max())
+        assert float((gg[k] - cg[k]).abs().max()) <= 1e-4 * scale + 1e-12, k
+    for k in cp:
+        assert float((gp[k] - cp[k]).abs().max()) <= 2 * lr + 1e-6, k
+        assert float((gmom[k] - cmom[k]).abs().max()) <= 1e-4 * max(
+            float(cmom[k].abs().max()), 1e-12), k
