@@ -6,8 +6,9 @@ and the LM serving and training paths:
 
 * the SPANN cluster index on the device, at the size of the standard 1M
   ANN sets: 1,000,000 vectors and 10,000 queries;
-* the DiskANN graph index at 200,000 vectors and 2,000 queries (cut from
-  1M: the build's RobustPrune is host numpy, as in the reference);
+* the DiskANN graph index at 100,000 vectors and 2,000 queries (cut from
+  1M: the build's RobustPrune is host numpy, as in the reference; 100,000
+  keeps the phases' sum under 1,000 s of the 1,200 s limit since step 14);
 * retrieval-augmented generation with gemma-2b at its full width over a
   4,096-document corpus, and gemma-2b's training steps at that width.
 
@@ -22,7 +23,10 @@ and the LM serving and training paths:
    sharded search step over the whole index (512 queries, nprobe_local 16,
    k=10; its probe runs ``l2_distance``) and a sharded k-means step (100,000
    points, 1,024 centroids), each held against the same step on the CPU
-   through a ``gloo`` group, with the step's time and launches;
+   through a ``gloo`` group, with the step's time and launches; one more
+   search step under the profiler, whose trace
+   ``launch/roofline.py``'s parser must read as its two all-gathers of
+   512 x 10 x (4 + 4) bytes;
 3. graph path: ``GraphIndex.build`` (R=24, L_build=48, one pass, 48 PQ
    subquantizers: the greedy search and PQ training on the card, the prune
    on the host); ground truth with ``exact_topk``; ``GraphIndex.search`` at
@@ -92,19 +96,31 @@ and the LM serving and training paths:
    time of 16 requests and one under the profiler; the logits of 4 held to
    the teacher-forced full forward in f32 (no TF32) and in bf16; ``l2_topk``
    at the closure's and the ground truth's shapes against its plain
-   version; then ``python -m repro_torch.launch.serve`` on the card and
-   with ``--device cpu``;
+   version; then ``python -m repro_torch.launch.serve`` on the card (its
+   ``--device cpu`` run is the CPU tests', ``tests/test_torch_lm_serve.py``);
 13. training (``launch/train.py``'s ``build`` and ``train``, the runner,
    AdamW, remat) at gemma-2b's full width on step 12's weights: 6 steps at
    batch 8 x 256 tokens with finite losses and gradient norms, step 0's
    loss equal to ``lm.loss`` of its batch; ms a step (CUDA events),
    tokens/s, peak memory, the optimizer's share, one step under the
-   profiler, the step's operations and bytes bounds; a 1-layer model at
+   profiler, whose trace holds no collective (one rank); the step's
+   operations and bytes bounds, beside ``launch/roofline.py``'s terms of the
+   same step (its analytic FLOPs and HBM bytes, the latter with the
+   activations and the optimizer's traffic); a 1-layer model at
    gemma-2b's widths one step on the card against the CPU (f32); at the
    smoke config 30 steps with a falling loss, and a SIGTERM preemption
    whose resume ends on the uninterrupted run's parameters; then
    ``python -m repro_torch.launch.train --smoke --steps 3`` on the card.
-   The training path launches none of the three kernels.
+   The training path launches none of the three kernels;
+14a. the smoke config trained 3 steps through the DTensor path
+   (``models/parallel.py``) on an explicit 1x1 mesh over one NCCL rank,
+   whose losses must equal the plain path's within 1e-6 relative;
+14b. ``python -m repro_torch.launch.dryrun`` in three subprocesses (gemma-2b
+   ``train_4k`` and ``decode_32k``, and ``--vector-search``), each one sharded
+   step on a fake world of 256 ranks with fake tensors: status ``ok`` and a
+   per-rank peak under the card's memory are required; the trace time, the
+   FLOP count against the analytic FLOPs, the collectives and the roofline
+   terms are printed.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -114,7 +130,7 @@ exits nonzero before that line; so does a machine without CUDA, or a
 directory without the rest of the repository.
 
     python3 chip_smoke.py [--n 1000000] [--queries 10000]
-                          [--graph-n 200000] [--graph-queries 2000] [--out PATH]
+                          [--graph-n 100000] [--graph-queries 2000] [--out PATH]
 """
 from __future__ import annotations
 
@@ -368,7 +384,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
-    ap.add_argument("--graph-n", type=int, default=200_000)
+    ap.add_argument("--graph-n", type=int, default=100_000)
     ap.add_argument("--graph-queries", type=int, default=2_000)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the full report as JSON here")
@@ -834,7 +850,7 @@ def main(argv=None) -> int:
     params = rag(dev, peaks, kernels, report, launches, gemma, RAG_CORPUS)
     t = phase("RAG at gemma-2b's full width", t)
     serve_cli(report)
-    t = phase("serve CLI on the card and the CPU", t)
+    t = phase("serve CLI on the card", t)
 
     # ---- 13. training at gemma-2b's full width -------------------------
     first_layer = {k: v.cpu() for k, v in params.items()
@@ -847,6 +863,12 @@ def main(argv=None) -> int:
     t = phase("training: smoke config, preemption and resume", t)
     train_cli(report)
     t = phase("train CLI on the card", t)
+
+    # ---- 14. training through DTensors, and the dry-run -----------------
+    train_dtensor(dev, report, launches)
+    t = phase("training through DTensors on a 1x1 mesh (one NCCL rank)", t)
+    dryrun(report)
+    t = phase("dry-run: 3 cells on a fake 256-rank world", t)
 
     for kern in kernels:
         kern["launches"] = sum(c[kern["name"]] for c in launches.values())
@@ -1732,6 +1754,24 @@ def sharded(dev, data, queries, arrs, dv, report, launches) -> None:
               f"{len(probe_rows)} rows probed other lists at a near-tie, "
               f"{n_diff} rows differ otherwise, all near-ties; max abs err "
               f"{float(err.max()):.3g}")
+        # one more step under the profiler: launch/roofline.py's parser must
+        # find its two all-gathers (f32 distances and int32 ids, B x k each)
+        from repro_torch.launch import roofline as rf
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA],
+                record_shapes=True) as prof, rf.annotate_groups():
+            step(cents, vecs, ids, norms, q)
+            torch.cuda.synchronize()
+        trace = chrome_trace(prof)
+        coll = {"counts": rf.count_collectives(trace),
+                "bytes": rf.collective_bytes(trace),
+                "links": rf.link_bytes(trace)}
+        require(coll["counts"] == {"all-gather": 2}
+                and coll["bytes"] == {"all-gather": len(q) * K * 8},
+                f"sharded search: the profiler's trace reads as {coll}")
+        print(f"sharded search step's trace through launch/roofline.py: "
+              f"{coll}", flush=True)
         del norms, got_ids, got_d
 
         x = xs[:KMEANS_N]
@@ -1769,7 +1809,8 @@ def sharded(dev, data, queries, arrs, dv, report, launches) -> None:
               f"{int(keep.sum())} within rtol {KMEANS_RTOL} (atol {atol:.3g}), "
               f"max abs err {float(kerr.max()):.3g}")
         report["sharded"] = {
-            "search": {"ms": ms, "launches": c, "probe_near_ties": len(probe_rows),
+            "search": {"ms": ms, "launches": c, "collectives": coll,
+                       "probe_near_ties": len(probe_rows),
                        "rows_differing": n_diff, "max_abs_err": float(err.max())},
             "kmeans": {"ms": kms, "launches": kc, "near_tie_points": len(moved),
                        "clusters_touched": len(touched),
@@ -1974,12 +2015,10 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
 
 def serve_cli(report) -> None:
     """``python -m repro_torch.launch.serve`` as a user runs it (the smoke
-    config) on the card and with ``--device cpu``: each must exit 0 and
-    print a line for each request; whether the two texts match is printed
-    (both draw the same weights on the CPU)."""
+    config) on the card: it must exit 0 and print a line for each request
+    (the ``--device cpu`` run is a CPU test's)."""
     root = Path(__file__).resolve().parent
-    texts = {}
-    for name, flags in (("card", []), ("cpu", ["--device", "cpu"])):
+    for name, flags in (("card", []),):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
@@ -1994,13 +2033,9 @@ def serve_cli(report) -> None:
                       if ln.startswith("request "))
         require(reqs == [0, 1, 2, 3], f"serve CLI ({name}) printed requests "
                 f"{reqs}")
-        texts[name] = proc.stdout
         report.setdefault("serve_cli", {})[name] = {"wall_s": wall,
                                                     "stdout": proc.stdout}
         print(f"serve CLI ({name}), {wall:.3f} s:\n{proc.stdout.rstrip()}")
-    same = texts["card"] == texts["cpu"]
-    report["serve_cli"]["same_text"] = same
-    print(f"serve CLI: the card's text equals --device cpu's: {same}")
 
 
 # ---- 13. training ---------------------------------------------------------
@@ -2043,6 +2078,34 @@ def train_bounds(cfg, n_params: int, batch: int, seq: int, peaks,
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def roofline_terms(cfg, batch: int, seq: int, peaks, bf16_peak: float
+                   ) -> dict:
+    """The same step by ``launch/roofline.py``'s analytic model on one card:
+    ``analytic_flops`` (4 forward passes' FLOPs under full remat) at the
+    bf16 peak, ``analytic_bytes`` (parameters read as bf16 casts of the f32
+    masters, the optimizer's p, m and v read and written, and ~12
+    activation tensors a layer) at the card's memory rate."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as rf
+    shape = ShapeConfig("chip_smoke_train", seq_len=seq, global_batch=batch,
+                        kind="train")
+    flops = rf.analytic_flops(cfg, shape)
+    nbytes = rf.analytic_bytes(cfg, shape, 1)
+    ops_ms, bytes_ms = flops / bf16_peak * 1e3, nbytes / peaks[1] * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def chrome_trace(prof) -> dict:
+    """The profiler's chrome trace, loaded."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
 
 
 def train_full(peaks, report, launches, cfg, params: dict) -> None:
@@ -2127,8 +2190,10 @@ def train_full(peaks, report, launches, cfg, params: dict) -> None:
         med = statistics.median(step_ms[1:])
         med_opt = statistics.median(opt_ms[1:])
         tokens_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+        bf16_peak = card_bf16_peak(torch.cuda.get_device_name(0))
         bounds = train_bounds(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ, peaks,
-                              card_bf16_peak(torch.cuda.get_device_name(0)))
+                              bf16_peak)
+        roof = roofline_terms(cfg, TRAIN_BATCH, TRAIN_SEQ, peaks, bf16_peak)
         print(f"training {cfg.name} at its full width ({n_params} parameters, "
               f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat, bf16 over f32 "
               f"weights) on {smi}: losses {[round(x, 4) for x in rep.losses]}, "
@@ -2144,6 +2209,14 @@ def train_full(peaks, report, launches, cfg, params: dict) -> None:
               f"{bounds['flops']:.4g} FLOP at the bf16 peak {bounds['ops_ms']:.3f} "
               f"ms, {bounds['bytes']:.4g} bytes {bounds['bytes_ms']:.3f} ms), "
               f"{bounds['bound_ms'] / med:.3f} of it; launches {c}", flush=True)
+        print(f"training step by launch/roofline.py's model (one card): "
+              f"operations {roof['flops']:.4g} FLOP, {roof['ops_ms']:.3f} ms at "
+              f"the bf16 peak; bytes {roof['bytes']:.4g} (parameters, "
+              f"optimizer and activations), {roof['bytes_ms']:.3f} ms; bound "
+              f"{roof['bound_ms']:.3f} ms ({roof['bound_by']}), "
+              f"{roof['bound_ms'] / med:.3f} of the median step; train_bounds "
+              f"above: {bounds['ops_ms']:.3f} ms operations, "
+              f"{bounds['bytes_ms']:.3f} ms bytes", flush=True)
 
         # one more step under the profiler: the card's busy time against the
         # wall time, and the kernels that take it
@@ -2151,12 +2224,16 @@ def train_full(peaks, report, launches, cfg, params: dict) -> None:
         batch = lt.batch_fn(lm.cfg, args, lm.device)(TRAIN_STEPS)
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.profiler.ProfilerActivity.CUDA],
+                record_shapes=True) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, _, m = step(lm, opt_state, batch)
             float(m["loss"])
             wall_us = (time.perf_counter() - t0) * 1e6
+        from repro_torch.launch import roofline as rf
+        coll = rf.collective_bytes(chrome_trace(prof))
+        require(coll == {}, f"one rank's training step recorded {coll}")
         kern = sorted((e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=lambda e: -e.self_device_time_total)
@@ -2169,6 +2246,7 @@ def train_full(peaks, report, launches, cfg, params: dict) -> None:
                    "idle_share": 1 - busy_us / wall_us,
                    "busy_share_of_step": busy_us / (med * 1e3),
                    "matmul_us": mm_us, "kernels": sum(e.count for e in kern),
+                   "collective_bytes": coll,
                    "top_kernels_us": [(e.key[:60], round(e.self_device_time_total, 1))
                                       for e in kern[:8]]}
         print(f"training step under the profiler: wall {wall_us:.0f} us, device "
@@ -2184,7 +2262,8 @@ def train_full(peaks, report, launches, cfg, params: dict) -> None:
             "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": tokens_s,
             "adamw_ms": opt_ms, "adamw_ms_median": med_opt,
             "adamw_share": med_opt / med, "peak_bytes": peak,
-            "bounds": bounds, "profile": profile, "launches": c}
+            "bounds": bounds, "roofline": roof, "profile": profile,
+            "launches": c}
         del lm, opt_state, step, batch, m
     finally:
         if dist.is_initialized():
@@ -2333,6 +2412,127 @@ def train_cli(report) -> None:
     report["train_cli"] = {"wall_s": wall, "stdout": proc.stdout}
     print(f"train CLI on the card, {wall:.3f} s:\n{proc.stdout.rstrip()}")
 
+
+
+# ---- 14. training through DTensors, and the dry-run ----------------------
+
+DT_STEPS, DT_BATCH, DT_SEQ = 3, 8, 64
+#: the DTensor path on a 1x1 mesh runs the plain path's products in its
+#: order: only the gradients' accumulation order may differ
+DT_LOSS_RTOL = 1e-6
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("gemma-2b", "decode_32k"),
+                ("vector-search", None))
+
+
+def train_dtensor(dev, report, launches) -> None:
+    """``launch/train.py`` on the smoke config twice on one NCCL rank: with
+    plain tensors, and with DTensor parameters and batches on an explicit
+    1x1 mesh (``build(args, mesh=...)``); 3 steps each, whose losses must
+    agree within ``DT_LOSS_RTOL``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import train as lt
+    from repro_torch.models import parallel
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dtensor_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        runs = {}
+        reset()
+        for name in ("plain", "dtensor"):
+            mesh = (DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+                    if name == "dtensor" else None)
+            args = lt.build_parser().parse_args([
+                "--arch", "gemma-2b", "--smoke", "--steps", str(DT_STEPS),
+                "--batch", str(DT_BATCH), "--seq", str(DT_SEQ), "--ckpt",
+                os.path.join(tmp.name, name)])
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                lm = lt.build(args, mesh=mesh)
+                require(parallel.is_sharded(lm) == (mesh is not None)
+                        and lm.device.type == "cuda",
+                        f"train ({name}) built on {lm.device}, sharded "
+                        f"{parallel.is_sharded(lm)}")
+                t0 = time.perf_counter()
+                _, _, rep = lt.train(lm, args)
+                torch.cuda.synchronize()
+            runs[name] = {"losses": rep.losses,
+                          "wall_s": time.perf_counter() - t0,
+                          "stdout": out.getvalue()}
+        c = launches["train_dtensor"] = counts()
+        require(not any(c.values()), f"training launched {c}")
+        plain, sharded = runs["plain"]["losses"], runs["dtensor"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, plain))
+        require(len(plain) == len(sharded) == DT_STEPS and rel <= DT_LOSS_RTOL,
+                f"DTensor training: losses {sharded} vs plain {plain}")
+        print(f"training through DTensors on a 1x1 mesh (one NCCL rank), "
+              f"gemma-2b smoke, {DT_STEPS} steps at {DT_BATCH} x {DT_SEQ}: "
+              f"losses {sharded} vs plain {plain}, max rel diff {rel:.3g}; "
+              f"wall {runs['dtensor']['wall_s']:.3f} s vs "
+              f"{runs['plain']['wall_s']:.3f} s", flush=True)
+        report["train_dtensor"] = {"runs": runs, "max_rel_diff": rel,
+                                   "launches": c}
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+
+def dryrun(report) -> None:
+    """``python -m repro_torch.launch.dryrun`` as a user runs it, one
+    subprocess a cell of ``DRYRUN_CELLS``: each must exit 0 with status
+    ``ok`` and a per-rank peak under the card's memory."""
+    root = Path(__file__).resolve().parent
+    total = torch.cuda.get_device_properties(0).total_memory
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    cells = {}
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            flags = (["--vector-search"] if shape is None
+                     else ["--arch", arch, "--shape", shape])
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+                 "--out", tmp.name], cwd=root,
+                env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            require(proc.returncode == 0, f"dry-run {flags} exited "
+                    f"{proc.returncode}: {proc.stderr[-3000:]}")
+            tag = (f"{arch}_{shape}_32x8" if shape else "vector-search_32x8")
+            rec = json.loads(Path(tmp.name, tag + ".json").read_text())
+            peak = rec["memory"]["peak_size_in_bytes"]
+            require(rec["status"] == "ok" and peak < total,
+                    f"dry-run {tag}: status {rec['status']}, peak {peak} "
+                    f"bytes a rank of the card's {total}")
+            roof = rec["roofline"]
+            if shape is None:
+                counted = rec["cost"]["flops_per_device"] * rec["chips"]
+                analytic = roof["model_flops"]
+                coll = rec["collective_bytes"]
+            else:
+                counted = (roof["raw_cost_analysis"]["flop_counter_per_device"]
+                           * rec["chips"])
+                analytic = roof["hlo_flops_global"]
+                coll = roof["coll_breakdown"]
+            trace_s = rec.get("trace_s")
+            print(f"dry-run {tag} ({rec['chips']} fake ranks): {rec['status']}, "
+                  f"trace {trace_s} s, process {wall:.1f} s; peak "
+                  f"{peak / 2**30:.3f} GiB a rank of {total / 2**30:.1f} GiB "
+                  f"(arguments {rec['memory']['argument_size_in_bytes'] / 2**30:.3f} "
+                  f"GiB); FLOP counter x ranks {counted:.4g} vs analytic "
+                  f"{analytic:.4g} ({counted / analytic:.3f}); collectives "
+                  f"{rec['collective_counts']}, bytes a rank {coll}; roofline "
+                  f"compute {roof['compute_s']:.4g} s, memory "
+                  f"{roof['memory_s']:.4g} s, collective "
+                  f"{roof['collective_s']:.4g} s", flush=True)
+            cells[tag] = {"process_s": wall, "record": rec}
+        report["dryrun"] = cells
+    finally:
+        tmp.cleanup()
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -16,10 +16,10 @@ as one-rank collectives.
 
 The centroid probe goes through :func:`repro_torch.core.distances.
 pairwise_sq_l2`, which is the hand-written ``l2_distance`` kernel on the
-card.  The scan's products run in full float32 (no TF32), and top-k puts
-the lower index first on ties, as ``jax.lax.top_k`` does.
-(``dryrun_distributed_search`` compiles with XLA for a production mesh and
-is not part of the port.)
+card (the ``repro_torch::l2_distance`` op).  The scan's products run in
+full float32 (no TF32), and top-k puts the lower index first on ties, as
+``jax.lax.top_k`` does.  :func:`dryrun_distributed_search` runs the step
+once at production scale on a fake world (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -31,10 +31,13 @@ from repro_torch.kernels.ref import full_f32_matmul
 
 
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """(S, *t.shape): every rank's ``t``, in rank order."""
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, t.contiguous(), group=group)
-    return torch.stack(out)
+    """(S, *t.shape): every rank's ``t``, in rank order (one functional
+    all-gather, which a profiler records with its dtype and group size)."""
+    g = group if group is not None else dist.group.WORLD
+    n = dist.get_world_size(g)
+    out = torch.ops._c10d_functional.all_gather_into_tensor(
+        t.contiguous(), n, g.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out).reshape(n, *t.shape)
 
 
 def sharded_search_step(group=None, *, nprobe_local: int, k: int):
@@ -104,3 +107,77 @@ def sharded_kmeans_step(group=None):
                            sums / counts.clamp_min(1.0)[:, None], cent)
 
     return step
+
+
+# --------------------------------------------------------- dry-run cell --
+
+def dryrun_distributed_search(
+    mesh, *,
+    n_lists: int = 1 << 21,       # 2M posting lists (BIGANN-1B-scale SPANN)
+    max_len: int = 128,
+    dim: int = 128,
+    batch: int = 256,
+    nprobe_local: int = 8,
+    k: int = 10,
+    device: str = "cuda",
+) -> dict:
+    """Run the production-scale sharded search step once, as rank 0 of
+    ``mesh``'s world (a fake process group), on fake tensors: each rank's
+    shard is ``n_lists / chips`` int8 lists with their f32 centroids and
+    norms and int32 ids.  Returns the dry-run record (memory, cost,
+    collective bytes; the reference's keys).
+
+    ``bytes_per_device`` counts what the step must read and write once: the
+    rank's centroids, the probed lists' rows, ids and norms, the queries
+    and the merged result (the reference reads XLA's "bytes accessed")."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.dryrun import local_bytes, trace
+
+    chips = mesh.size()
+    L = n_lists // chips
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        shard = (torch.empty((L, dim), dtype=torch.float32, device=device),
+                 torch.empty((L, max_len, dim), dtype=torch.int8,
+                             device=device),
+                 torch.empty((L, max_len), dtype=torch.int32, device=device),
+                 torch.empty((L, max_len), dtype=torch.float32,
+                             device=device))
+        q = torch.empty((batch, dim), dtype=torch.float32, device=device)
+        step = sharded_search_step(nprobe_local=nprobe_local, k=k)
+        arg_bytes = local_bytes((shard, q))
+        wall, flops_dev, peak, colls = trace(lambda: step(*shard, q))
+    coll = rf.collective_bytes(colls)
+    links = rf.link_bytes(colls)
+    read = (L * dim * 4 + batch * nprobe_local * max_len * (dim + 4 + 4)
+            + batch * dim * 4 + batch * k * 8)
+    # analytic "model flops": distance comps actually requested
+    lists_scanned = chips * nprobe_local * batch
+    model_flops = 2.0 * lists_scanned * max_len * dim \
+        + 2.0 * batch * n_lists * dim          # centroid matmul
+    roof = rf.Roofline(chips=chips, flops_per_device=float(flops_dev),
+                       bytes_per_device=float(read),
+                       coll_bytes_per_device=float(sum(coll.values())),
+                       coll_breakdown=coll, model_flops=model_flops,
+                       coll_link_bytes=links)
+    return dict(
+        status="ok", chips=chips, trace_s=round(wall, 1),
+        shape=dict(n_lists=n_lists, max_len=max_len, dim=dim,
+                   batch=batch, nprobe_local=nprobe_local, k=k),
+        memory=dict(argument_size_in_bytes=arg_bytes,
+                    temp_size_in_bytes=int(peak),
+                    peak_size_in_bytes=arg_bytes + int(peak)),
+        cost=dict(flops_per_device=float(flops_dev),
+                  bytes_per_device=float(read)),
+        collective_bytes=coll,
+        collective_counts=rf.count_collectives(colls),
+        roofline=dict(
+            compute_s=roof.compute_s,
+            memory_s=roof.memory_s,
+            collective_s=roof.collective_s,
+            model_flops=model_flops,
+            useful_flops_ratio=(model_flops / (flops_dev * chips)
+                                if flops_dev else 0.0),
+        ),
+    )

@@ -4,14 +4,20 @@ Counterpart of ``repro.launch.mesh``.  Functions, not module constants, so
 importing this module creates no process group.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the reference's axis
 names: ``("data", "model")``, or ``("pod", "data", "model")`` across pods.
-Both functions run over the default process group and create a one-rank
-group (gloo on the CPU, NCCL on the card, an in-memory store) when none
-exists (a caller that wants it gone destroys it:
-``torch.distributed.destroy_process_group()``).
+Both functions run over the default process group.  When none exists they
+create one: from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``) when it is there, else a one-rank group
+with an in-memory store; gloo on the CPU, NCCL on the card (a caller that
+wants it gone destroys it: ``torch.distributed.destroy_process_group()``).
+
+On 256 ranks the production mesh is (32, 8) (``mesh_tag`` "32x8"), on 512
+with ``multi_pod`` (2, 32, 8): a node's 8 cards form the model axis, where
+the reference's TPU pod is a 16x16 torus ("16x16", "2x16x16").
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -28,12 +34,23 @@ PODS = 2
 def _ensure_group(device: torch.device) -> None:
     if dist.is_initialized():
         return
+    backend = "nccl" if device.type == "cuda" else "gloo"
     kw = {}
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
     if device.type == "cuda":
+        if launched:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            store=dist.HashStore(), rank=0, world_size=1,
-                            **kw)
+    if launched:                   # torchrun: env:// rendezvous
+        dist.init_process_group(backend, **kw)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+
+
+def mesh_tag(mesh: DeviceMesh) -> str:
+    """``"32x8"``: the mesh's axis sizes."""
+    return "x".join(str(n) for n in mesh.shape)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -18,6 +18,9 @@ A ``mesh`` argument is a ``DeviceMesh`` or a mapping of axis name to size.
 The port's layers are a list (``blocks.{i}.…``), not the reference's
 stacked units, so the reference's leading layer axis falls away.  Dims
 that do not divide their axis stay unsharded.
+
+:func:`distribute_lm` and :func:`distribute_tree` apply the rules: each
+rank keeps its own piece of every tensor, as a DTensor.
 """
 from __future__ import annotations
 
@@ -25,7 +28,10 @@ import dataclasses
 from collections.abc import Mapping
 from typing import Any
 
+from torch import nn
 from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.models.parallel import place
 
 Spec = tuple
 
@@ -221,3 +227,30 @@ def cache_shardings(mesh, caches: Any, batch_size: int) -> Any:
                     break
         return sharding(mesh, tuple(axes))
     return _map(caches, one)
+
+
+def distribute_lm(lm, mesh) -> None:
+    """Replace ``lm``'s parameters, in place, by DTensors on ``mesh`` under
+    :func:`params_shardings`, and set ``lm.tp_axis``: the model axis does
+    tensor parallelism under the ``tp_fsdp`` policy, none under ``fsdp``."""
+    params = dict(lm.named_parameters())
+    shardings = params_shardings(mesh, params)
+    for name, p in params.items():
+        mod, _, leaf = name.rpartition(".")
+        owner = lm.get_submodule(mod) if mod else lm
+        setattr(owner, leaf, nn.Parameter(
+            place(p.detach(), mesh, shardings[name].placements)))
+    lm.tp_axis = "model" if POLICY == "tp_fsdp" else None
+
+
+def distribute_tree(tree, mesh, shardings):
+    """``tree`` (dicts, lists, tuples of tensors) placed leaf by leaf by the
+    matching ``Sharding`` tree (:func:`batch_shardings` or
+    :func:`cache_shardings`)."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, mesh, shardings[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_tree(v, mesh, s)
+                          for v, s in zip(tree, shardings))
+    return place(tree, mesh, shardings.placements)

@@ -265,49 +265,105 @@ def _self_attention_core(q, k, v, n_kv: int, window: int, S: int):
     return _sdpa(q, k, v, causal_mask(S, S, window, q.device), n_kv)
 
 
-def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Full (training/prefill) self-attention with residual."""
+def _kv_select(k, v, kv: slice | None):
+    """The KV heads this rank's query heads read (all of them: None)."""
+    if kv is None:
+        return k, v
+    return k[:, :, kv], v[:, :, kv]
+
+
+def attention_delta(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, window: int = 0,
+                    kv: slice | None = None, with_cache: bool = False):
+    """The self-attention branch (training/prefill), without the residual.
+
+    ``kv`` selects the KV heads the query heads of ``p`` read when ``p``
+    holds a tensor-parallel slice of the query heads beside every KV head;
+    ``cfg.n_kv_heads`` is then the selected count.  With ``with_cache``
+    also returns the (k, v) cache content (every KV head of ``p``)."""
     h = rmsnorm(p.norm, x)
     q, k, v = _qkv(p, cfg, h, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     S = x.shape[1]
-    o = _self_attention_core(q, k, v, cfg.n_kv_heads, window, S)
-    return x + torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+    o = _self_attention_core(q, *_kv_select(k, v, kv), cfg.n_kv_heads,
+                             window, S)
+    delta = torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+    return (delta, (k, v)) if with_cache else delta
+
+
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Full (training/prefill) self-attention with residual."""
+    return x + attention_delta(p, cfg, x, positions, window)
+
+
+def cross_attention_delta(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                          ctx: torch.Tensor, kv: slice | None = None
+                          ) -> torch.Tensor:
+    """The cross-attention branch, without the residual (``kv`` as in
+    :func:`attention_delta`)."""
+    h = rmsnorm(p.norm, x)
+    c = rmsnorm(p.kv_norm, ctx)
+    q, k, v = _qkv(p, cfg, h, c)
+    o = _sdpa(q, *_kv_select(k, v, kv), None, cfg.n_kv_heads)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
 
 
 def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     ctx: torch.Tensor) -> torch.Tensor:
     """Cross-attention over a (B, T, D) context (VLM image tokens)."""
-    h = rmsnorm(p.norm, x)
-    c = rmsnorm(p.kv_norm, ctx)
-    q, k, v = _qkv(p, cfg, h, c)
-    o = _sdpa(q, k, v, None, cfg.n_kv_heads)
-    return x + torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+    return x + cross_attention_delta(p, cfg, x, ctx)
 
 
 # -------------------------------------------------- attention: serving ----
 
+def cross_kv(p: Attention, cfg: ModelConfig, ctx: torch.Tensor):
+    """The projected image K/V a cross layer caches once (fixed during
+    decode)."""
+    c = rmsnorm(p.kv_norm, ctx)
+    _, k, v = _qkv(p, cfg, c, c)
+    return k, v
+
+
+def cross_attention_decode_delta(p: Attention, cfg: ModelConfig, x, k, v,
+                                 kv: slice | None = None) -> torch.Tensor:
+    """One token's cross-attention branch against the cached image K/V
+    (``kv`` as in :func:`attention_delta`)."""
+    h = rmsnorm(p.norm, x)
+    q = torch.einsum("bsd,dhk->bshk", h, p.wq.to(x.dtype))
+    if cfg.qk_norm:
+        q = rmsnorm(p.q_norm, q)
+    k, v = _kv_select(k, v, kv)
+    o = _sdpa(q, k.to(x.dtype), v.to(x.dtype), None, cfg.n_kv_heads)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
+
+
+def ring_window(k: torch.Tensor, v: torch.Tensor, window: int):
+    """A prompt's (k, v) cut to the last ``window`` positions, rolled so
+    position p sits at slot p % window (the layout the decode ring writes
+    expect)."""
+    S = k.shape[1]
+    if window and S >= window:
+        k = torch.roll(k[:, -window:], S % window, dims=1)
+        v = torch.roll(v[:, -window:], S % window, dims=1)
+    return k, v
+
+
 def attention_prefill(p: Attention, cfg: ModelConfig, x, positions,
                       window: int = 0):
     """Like ``attention`` but also returns the (k, v) cache content."""
-    h = rmsnorm(p.norm, x)
-    q, k, v = _qkv(p, cfg, h, h)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    S = x.shape[1]
-    o = _self_attention_core(q, k, v, cfg.n_kv_heads, window, S)
-    out = x + torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
-    return out, (k, v)
+    delta, kv = attention_delta(p, cfg, x, positions, window,
+                                with_cache=True)
+    return x + delta, kv
 
 
-def attention_decode(p: Attention, cfg: ModelConfig, x, cache_kv, pos: int,
-                     window: int = 0):
-    """One-token decode. x: (B, 1, D); cache_kv: (k, v) each
-    (B, S_max, KV, hd) (or a (B, window, KV, hd) ring for local attention);
-    pos: the current position.  Writes the new K/V into the cache in place
-    and returns (out, cache)."""
+def attention_decode_delta(p: Attention, cfg: ModelConfig, x, cache_kv,
+                           pos: int, window: int = 0,
+                           kv: slice | None = None):
+    """One-token decode branch, without the residual (``kv`` as in
+    :func:`attention_delta`; the cache holds every KV head of ``p``).
+    Writes the new K/V into the cache in place; returns (delta, cache)."""
     h = rmsnorm(p.norm, x)
     q, k, v = _qkv(p, cfg, h, h)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
@@ -326,9 +382,19 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache_kv, pos: int,
         mask = (age < min(pos + 1, T))[None, None, None, None, :]
     else:
         mask = (kpos <= pos)[None, None, None, None, :]
-    o = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask, cfg.n_kv_heads)
-    out = x + torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype))
-    return out, (ck, cv)
+    ks, vs = _kv_select(ck, cv, kv)
+    o = _sdpa(q, ks.to(q.dtype), vs.to(q.dtype), mask, cfg.n_kv_heads)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(x.dtype)), (ck, cv)
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x, cache_kv, pos: int,
+                     window: int = 0):
+    """One-token decode. x: (B, 1, D); cache_kv: (k, v) each
+    (B, S_max, KV, hd) (or a (B, window, KV, hd) ring for local attention);
+    pos: the current position.  Writes the new K/V into the cache in place
+    and returns (out, cache)."""
+    delta, cache = attention_decode_delta(p, cfg, x, cache_kv, pos, window)
+    return x + delta, cache
 
 
 # ------------------------------------------------------------------- mlp --
@@ -386,30 +452,39 @@ class MoE(nn.Module):
 MOE_GROUP = 8192
 
 
+def moe_routed(p: MoE, cfg: ModelConfig, h: torch.Tensor,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
+    """The routed experts' mixture of the normed ``h`` (B, S, D).  Tokens
+    are routed in groups of ``MOE_GROUP`` when they divide evenly, as in
+    the reference.  ``experts=(lo, hi)``: ``p`` holds experts ``lo..hi-1``
+    only, and the mixture sums theirs (an expert-parallel slice)."""
+    B, S, D = h.shape
+    T = B * S
+    if T > MOE_GROUP and T % MOE_GROUP == 0:
+        hg = h.reshape(T // MOE_GROUP, MOE_GROUP, D)
+        out = torch.stack([_moe_group(p, cfg, g, experts) for g in hg])
+        return out.reshape(B, S, D)
+    return _moe_group(p, cfg, h.reshape(T, D), experts).reshape(B, S, D)
+
+
 def moe(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Capacity-based top-k MoE with gather/scatter dispatch.
 
     Tokens beyond an expert's capacity are dropped (the residual passes
-    through); ``capacity_factor`` sets the slack.  Tokens are routed in
-    groups of ``MOE_GROUP`` when they divide evenly, as in the reference.
+    through); ``capacity_factor`` sets the slack.
     """
-    B, S, D = x.shape
     h = rmsnorm(p.norm, x)
-    T = B * S
-    if T > MOE_GROUP and T % MOE_GROUP == 0:
-        hg = h.reshape(T // MOE_GROUP, MOE_GROUP, D)
-        out = torch.stack([_moe_group(p, cfg, g) for g in hg])
-        out = out.reshape(B, S, D)
-    else:
-        out = _moe_group(p, cfg, h.reshape(T, D)).reshape(B, S, D)
+    out = moe_routed(p, cfg, h)
     if cfg.n_shared_experts:
         out = out + _mlp_core(p.shared, cfg, h)
     return x + out
 
 
-def _moe_group(p: MoE, cfg: ModelConfig, ht: torch.Tensor) -> torch.Tensor:
+def _moe_group(p: MoE, cfg: ModelConfig, ht: torch.Tensor,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
     """Route one token group.  ht: (T, D) -> (T, D) expert mixture."""
     E, K = cfg.n_experts, cfg.experts_per_token
+    lo, hi = experts or (0, E)
     T, D = ht.shape
     dt = ht.dtype
     dev = ht.device
@@ -438,7 +513,8 @@ def _moe_group(p: MoE, cfg: ModelConfig, ht: torch.Tensor) -> torch.Tensor:
                                                     gate_vals.reshape(-1))
     # gather tokens into expert slots (padding row = zeros)
     ht_pad = torch.cat([ht, torch.zeros((1, D), dtype=dt, device=dev)])
-    xe = ht_pad[token_of_slot[: E * C]].reshape(E, C, D)
+    slots = token_of_slot[lo * C: hi * C]
+    xe = ht_pad[slots].reshape(hi - lo, C, D)
     up = torch.einsum("ecd,edf->ecf", xe, p.wi.to(dt))
     if cfg.mlp in ("swiglu", "geglu"):
         g = torch.einsum("ecd,edf->ecf", xe, p.wg.to(dt))
@@ -446,9 +522,10 @@ def _moe_group(p: MoE, cfg: ModelConfig, ht: torch.Tensor) -> torch.Tensor:
     else:
         act = _gelu(up)
     ye = torch.einsum("ecf,efd->ecd", act, p.wo.to(dt))
-    ye = ye.reshape(E * C, D) * gate_of_slot[: E * C, None].to(ye.dtype)
+    ye = (ye.reshape((hi - lo) * C, D)
+          * gate_of_slot[lo * C: hi * C, None].to(ye.dtype))
     # scatter-add back to tokens (a token's k slots accumulate), in the
     # activation dtype; empty slots land on the discarded row T
     yt = torch.zeros((T + 1, D), dtype=ye.dtype, device=dev).index_add_(
-        0, token_of_slot[: E * C], ye)[:T]
+        0, slots, ye)[:T]
     return yt.to(dt)

@@ -61,10 +61,13 @@ def _conv(p: RGLRU, x):
     return out + p.conv_b.to(x.dtype)
 
 
-def _gates(p: RGLRU, xi):
-    """a (f32) and the gated input for the RG-LRU."""
-    r = torch.sigmoid((xi @ p.w_a.to(xi.dtype)).float() + p.b_a)
-    i = torch.sigmoid((xi @ p.w_x.to(xi.dtype)).float() + p.b_x)
+def _gates(p: RGLRU, xi, xi_all=None):
+    """a (f32) and the gated input for the RG-LRU.  ``xi_all``: every
+    channel of ``xi`` when ``p`` holds a tensor-parallel slice of the
+    channels (the gates' products read them all)."""
+    xa = xi if xi_all is None else xi_all
+    r = torch.sigmoid((xa @ p.w_a.to(xi.dtype)).float() + p.b_a)
+    i = torch.sigmoid((xa @ p.w_x.to(xi.dtype)).float() + p.b_x)
     log_a = _C * r * F.logsigmoid(p.lam)[None, None, :]
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
@@ -82,21 +85,36 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def _recurrence(p: RGLRU, x):
-    """(out with residual, the pre-conv input, the hidden states)."""
+def _recurrence(p: RGLRU, x, gather=None):
+    """(the branch without the residual, the pre-conv input, the hidden
+    states).  ``gather`` joins a tensor-parallel slice's channels into
+    all of them (None: ``p`` holds every channel)."""
     h = rmsnorm(p.norm, x)
     gate = _gelu(h @ p.in_gate.to(x.dtype))
     pre = h @ p.in_rec.to(x.dtype)
-    a, b = _gates(p, _conv(p, pre))               # (B,S,W) f32 each
+    xi = _conv(p, pre)
+    a, b = _gates(p, xi, gather(xi) if gather else None)   # (B,S,W) f32
     hseq = _scan(a, b)
     y = (hseq * gate.float()).to(x.dtype)
-    return x + y @ p.out.to(x.dtype), pre, hseq
+    return y @ p.out.to(x.dtype), pre, hseq
+
+
+def rglru_delta(p: RGLRU, cfg: ModelConfig, x, gather=None,
+                with_cache: bool = False):
+    """The recurrent branch without the residual; with ``with_cache`` also
+    the serving cache (the last hidden state and the conv tail)."""
+    delta, pre, hseq = _recurrence(p, x, gather)
+    if not with_cache:
+        return delta
+    K = cfg.ssm_conv
+    return delta, {"h": hseq[:, -1, :],
+                   "conv": pre[:, pre.shape[1] - (K - 1):, :]}
 
 
 def rglru_forward(p: RGLRU, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:
     """Training forward.  (B,S,D)->(B,S,D)."""
-    return _recurrence(p, x)[0]
+    return x + rglru_delta(p, cfg, x)
 
 
 def rglru_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -109,14 +127,18 @@ def rglru_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 
 def rglru_prefill(p: RGLRU, cfg: ModelConfig, x):
-    out, pre, hseq = _recurrence(p, x)
-    K = cfg.ssm_conv
-    cache = {"h": hseq[:, -1, :], "conv": pre[:, pre.shape[1] - (K - 1):, :]}
-    return out, cache
+    delta, cache = rglru_delta(p, cfg, x, with_cache=True)
+    return x + delta, cache
 
 
 def rglru_decode(p: RGLRU, cfg: ModelConfig, x, cache):
     """One-token step.  x: (B, 1, D)."""
+    delta, cache = rglru_decode_delta(p, cfg, x, cache)
+    return x + delta, cache
+
+
+def rglru_decode_delta(p: RGLRU, cfg: ModelConfig, x, cache, gather=None):
+    """One-token step's branch, without the residual: (delta, new_cache)."""
     h = rmsnorm(p.norm, x)
     gate = _gelu(h @ p.in_gate.to(x.dtype))
     pre = h @ p.in_rec.to(x.dtype)                             # (B,1,W)
@@ -124,8 +146,7 @@ def rglru_decode(p: RGLRU, cfg: ModelConfig, x, cache):
     w = p.conv_w.to(x.dtype)
     xi = (torch.einsum("bkw,kw->bw", window, w)
           + p.conv_b.to(x.dtype))[:, None, :]
-    a, b = _gates(p, xi)
+    a, b = _gates(p, xi, gather(xi) if gather else None)
     hnew = a[:, 0] * cache["h"] + b[:, 0]
     y = (hnew[:, None, :] * gate.float()).to(x.dtype)
-    out = x + y @ p.out.to(x.dtype)
-    return out, {"h": hnew, "conv": window[:, 1:, :]}
+    return y @ p.out.to(x.dtype), {"h": hnew, "conv": window[:, 1:, :]}

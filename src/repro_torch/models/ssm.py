@@ -118,9 +118,11 @@ def _ssd_chunked(cfg: ModelConfig, xh, Bc, Cc, dt, A, init_state=None):
     return y, state
 
 
-def _ssd_block(p: SSM, cfg: ModelConfig, x, conv_in, z, dt):
+def _ssd_block(p: SSM, cfg: ModelConfig, x, conv_in, z, dt, norm=rmsnorm):
     """Conv, SSD scan, gate and output projection over a whole sequence:
-    (out with residual, final state)."""
+    (the branch without the residual, final state).  ``norm`` is the gated
+    output norm over ``d_inner`` (a tensor-parallel slice passes one that
+    sums its squares across the slices)."""
     Bsz, S, _ = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     conv_out = _causal_conv(p, conv_in)
@@ -131,15 +133,27 @@ def _ssd_block(p: SSM, cfg: ModelConfig, x, conv_in, z, dt):
     y, final = _ssd_chunked(cfg, xh, Bc.float(), Cc.float(), dt, A)
     y = y + xh * p.D[None, None, :, None]
     y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(p.out_norm, y * F.silu(z))
-    return x + y @ p.out.to(x.dtype), final
+    y = norm(p.out_norm, y * F.silu(z))
+    return y @ p.out.to(x.dtype), final
+
+
+def ssm_delta(p: SSM, cfg: ModelConfig, x: torch.Tensor, norm=rmsnorm,
+              with_cache: bool = False):
+    """The SSM branch (B, S, D) without the residual; with ``with_cache``
+    also the serving cache (the final state and the conv tail)."""
+    z, xc, Bc, Cc, dt = _proj_inputs(p, cfg, x)
+    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
+    delta, final = _ssd_block(p, cfg, x, conv_in, z, dt, norm)
+    if not with_cache:
+        return delta
+    S = x.shape[1]
+    return delta, {"state": final,
+                   "conv": conv_in[:, S - (cfg.ssm_conv - 1):, :]}
 
 
 def ssm_forward(p: SSM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Training forward (B, S, D) -> (B, S, D), residual included."""
-    z, xc, Bc, Cc, dt = _proj_inputs(p, cfg, x)
-    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
-    return _ssd_block(p, cfg, x, conv_in, z, dt)[0]
+    return x + ssm_delta(p, cfg, x)
 
 
 # ------------------------------------------------------------- serving ----
@@ -158,16 +172,18 @@ def ssm_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 def ssm_prefill(p: SSM, cfg: ModelConfig, x):
     """Forward over a prompt, returning output and the serving cache."""
-    S = x.shape[1]
-    z, xc, Bc, Cc, dt = _proj_inputs(p, cfg, x)
-    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
-    conv_tail = conv_in[:, S - (cfg.ssm_conv - 1):, :]
-    out, final = _ssd_block(p, cfg, x, conv_in, z, dt)
-    return out, {"state": final, "conv": conv_tail}
+    delta, cache = ssm_delta(p, cfg, x, with_cache=True)
+    return x + delta, cache
 
 
 def ssm_decode(p: SSM, cfg: ModelConfig, x, cache):
     """One-token step.  x: (B, 1, D).  Returns (out, new_cache)."""
+    delta, cache = ssm_decode_delta(p, cfg, x, cache)
+    return x + delta, cache
+
+
+def ssm_decode_delta(p: SSM, cfg: ModelConfig, x, cache, norm=rmsnorm):
+    """One-token step's branch, without the residual: (delta, new_cache)."""
     Bsz = x.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     z, xc, Bc, Cc, dt = _proj_inputs(p, cfg, x)
@@ -185,6 +201,5 @@ def ssm_decode(p: SSM, cfg: ModelConfig, x, cache):
     y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
     y = y + xh * p.D[None, :, None]
     y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(p.out_norm, y * F.silu(z))
-    out = x + y @ p.out.to(x.dtype)
-    return out, {"state": state, "conv": window[:, 1:, :]}
+    y = norm(p.out_norm, y * F.silu(z))
+    return y @ p.out.to(x.dtype), {"state": state, "conv": window[:, 1:, :]}

@@ -25,10 +25,11 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru as rg
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (MLP, Attention, MoE, _qkv, _sdpa,
-                                       attention, attention_decode,
-                                       attention_prefill, cross_attention,
-                                       mlp, moe, remat, rmsnorm)
+from repro_torch.models.layers import (MLP, Attention, MoE, attention,
+                                       attention_decode, attention_prefill,
+                                       cross_attention,
+                                       cross_attention_decode_delta, cross_kv,
+                                       mlp, moe, remat, ring_window)
 
 
 # --------------------------------------------------------------- structure
@@ -128,22 +129,24 @@ def _policy() -> dict:
     return {}
 
 
-def stack_forward(blocks, cfg: ModelConfig, x, positions, ctx=None):
+def stack_forward(blocks, cfg: ModelConfig, x, positions, ctx=None,
+                  apply=_apply_block):
     """The layers in order, a unit repetition at a time (the reference's
     scan); with ``cfg.remat`` each repetition is checkpointed, the tail
-    layers are not."""
+    layers are not.  ``apply(block, cfg, x, positions, ctx)`` runs one
+    layer (the sharded path passes its own)."""
     unit, n_rep, _ = unit_structure(cfg)
     u = len(unit)
 
     def unit_fn(h, r):
         for p in blocks[r * u:(r + 1) * u]:
-            h = _apply_block(p, cfg, h, positions, ctx)
+            h = apply(p, cfg, h, positions, ctx)
         return h
 
     for r in range(n_rep):
         x = remat(unit_fn, x, r, **_policy()) if cfg.remat else unit_fn(x, r)
     for p in blocks[n_rep * u:]:
-        x = _apply_block(p, cfg, x, positions, ctx)
+        x = apply(p, cfg, x, positions, ctx)
     return x
 
 
@@ -158,20 +161,10 @@ def _block_prefill(p: Block, cfg: ModelConfig, x, positions, ctx):
         return mlp(p.ffn, cfg, x), cache
     if kind == "cross":
         x = cross_attention(p.attn, cfg, x, ctx)
-        # cache the projected image K/V once (fixed during decode)
-        c = rmsnorm(p.attn.kv_norm, ctx)
-        _, k, v = _qkv(p.attn, cfg, c, c)
-        return mlp(p.ffn, cfg, x), (k, v)
+        return mlp(p.ffn, cfg, x), cross_kv(p.attn, cfg, ctx)
     window = attention_window(cfg)
     x, (k, v) = attention_prefill(p.attn, cfg, x, positions, window=window)
-    if window:
-        # keep only the ring window, rolled so position p sits at slot
-        # p % window (the layout attention_decode's ring writes expect)
-        S = k.shape[1]
-        if S >= window:
-            k = torch.roll(k[:, -window:], S % window, dims=1)
-            v = torch.roll(v[:, -window:], S % window, dims=1)
-    return _ffn(p, cfg, x), (k, v)
+    return _ffn(p, cfg, x), ring_window(k, v, window)
 
 
 def _block_decode(p: Block, cfg: ModelConfig, x, pos: int, cache, ctx):
@@ -182,14 +175,7 @@ def _block_decode(p: Block, cfg: ModelConfig, x, pos: int, cache, ctx):
         x, cache = rg.rglru_decode(p.rec, cfg, x, cache)
         return mlp(p.ffn, cfg, x), cache
     if kind == "cross":
-        a = p.attn
-        k, v = cache
-        h = rmsnorm(a.norm, x)
-        q = torch.einsum("bsd,dhk->bshk", h, a.wq.to(x.dtype))
-        if cfg.qk_norm:
-            q = rmsnorm(a.q_norm, q)
-        o = _sdpa(q, k.to(x.dtype), v.to(x.dtype), None, cfg.n_kv_heads)
-        x = x + torch.einsum("bshk,hkd->bsd", o, a.wo.to(x.dtype))
+        x = x + cross_attention_decode_delta(p.attn, cfg, x, *cache)
         return mlp(p.ffn, cfg, x), cache
     x, cache = attention_decode(p.attn, cfg, x, cache, pos,
                                 window=attention_window(cfg))

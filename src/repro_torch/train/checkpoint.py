@@ -15,6 +15,13 @@ Counterpart of ``repro.train.checkpoint``, with its protocol:
   one rank);
 * :func:`gc_old` keeps the newest ``keep_last`` complete steps, never
   removing the newest.
+
+Sharded trees (DTensor leaves) save and restore on any number of ranks:
+every rank calls :func:`save` (a leaf's ``full_tensor()`` is a collective),
+rank 0 alone copies each leaf to the host and writes it, and all wait for
+it; :func:`restore` gives each rank its own piece of every leaf under the
+target leaf's placements.  So a checkpoint written on 4 ranks restores on
+1, and the other way round.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 MANIFEST = "manifest.json"
 
@@ -51,28 +60,56 @@ def _rebuild(tree: Any, values) -> Any:
     return next(values)
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writer() -> bool:
+    """Rank 0 of a process group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _host(leaf: torch.Tensor) -> np.ndarray:
+    return leaf.detach().cpu().numpy()
+
+
 def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None
          ) -> str:
-    """Atomically persist ``tree`` for ``step``.  Returns the step dir."""
+    """Atomically persist ``tree`` for ``step``, a leaf at a time: one leaf
+    is on the host at once.  Returns the step dir.  With several ranks
+    every rank calls it (a DTensor leaf's ``full_tensor()`` is a
+    collective) and rank 0 alone copies each leaf to the host and writes
+    it."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp_dir = step_dir + ".tmp"
-    if os.path.exists(tmp_dir):
-        shutil.rmtree(tmp_dir)
-    os.makedirs(tmp_dir, exist_ok=True)
+    writer = _writer()
+    if writer:
+        if os.path.exists(tmp_dir):
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir, exist_ok=True)
     leaves_meta = []
     for name, leaf in _leaves(tree):
-        arr = leaf.detach().cpu().numpy()
-        np.save(os.path.join(tmp_dir, name + ".npy"), arr)
-        leaves_meta.append({"name": name, "shape": list(arr.shape),
-                            "dtype": str(arr.dtype)})
-    manifest = {"step": step, "leaves": leaves_meta, "extra": extra or {}}
-    mpath = os.path.join(tmp_dir, MANIFEST)
-    with open(mpath + ".tmp", "w") as f:
-        json.dump(manifest, f)
-    os.replace(mpath + ".tmp", mpath)
-    if os.path.exists(step_dir):
-        shutil.rmtree(step_dir)
-    os.replace(tmp_dir, step_dir)          # atomic publish
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if writer:
+            arr = _host(leaf)
+            np.save(os.path.join(tmp_dir, name + ".npy"), arr)
+            leaves_meta.append({"name": name, "shape": list(arr.shape),
+                                "dtype": str(arr.dtype)})
+            del arr
+        del leaf
+    if writer:
+        manifest = {"step": step, "leaves": leaves_meta,
+                    "extra": extra or {}}
+        mpath = os.path.join(tmp_dir, MANIFEST)
+        with open(mpath + ".tmp", "w") as f:
+            json.dump(manifest, f)
+        os.replace(mpath + ".tmp", mpath)
+        if os.path.exists(step_dir):
+            shutil.rmtree(step_dir)
+        os.replace(tmp_dir, step_dir)          # atomic publish
+    if _ranks() > 1:
+        dist.barrier()
     return step_dir
 
 
@@ -98,9 +135,11 @@ def restore(ckpt_dir: str, step: int, target: Any,
     """Load ``step`` into the structure of ``target`` (a tree of tensors,
     ``meta`` ones included): each leaf takes its target's dtype and goes to
     ``device`` (None: the target leaf's own device, the CPU for a ``meta``
-    one).  Raises ``KeyError``
+    one); a DTensor target leaf gives a DTensor under its placements, of
+    which this rank holds its piece.  Raises ``KeyError``
     on a leaf the checkpoint lacks and ``ValueError`` on a shape
     mismatch."""
+    from repro_torch.models.parallel import place
     step_dir = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(step_dir, MANIFEST)) as f:
         manifest = json.load(f)
@@ -116,11 +155,16 @@ def restore(ckpt_dir: str, step: int, target: Any,
                                                     name + ".npy")))
         dev = device if device is not None else (
             "cpu" if leaf.device.type == "meta" else leaf.device)
-        out.append(arr.to(device=dev, dtype=leaf.dtype))
+        arr = arr.to(device=dev, dtype=leaf.dtype)
+        if isinstance(leaf, DTensor):
+            arr = place(arr, leaf.device_mesh, leaf.placements)
+        out.append(arr)
     return _rebuild(target, iter(out))
 
 
 def gc_old(ckpt_dir: str, keep_last: int = 2) -> None:
+    if not _writer():
+        return
     for s in _complete_steps(ckpt_dir)[:-keep_last]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:010d}"),
                       ignore_errors=True)

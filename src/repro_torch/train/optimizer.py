@@ -12,13 +12,20 @@ Parameters, gradients and the state ``m`` / ``v`` are dicts keyed by the
 model's parameter names; the state's ``step`` is an int32 0-dim tensor.
 Everything stays on the parameters' device (no host sync), and
 :func:`apply_updates` writes the parameters and the state in place.
+
+Sharded parameters (DTensors) work unchanged: ``m``/``v`` take their
+placements, every update is elementwise on each rank's shard, and
+:func:`global_norm` sums each leaf's squares across its shards.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 Params = dict[str, torch.Tensor]
 
@@ -55,8 +62,15 @@ def init_state(params: Params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(x.float()))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    """The L2 norm of every leaf together (a DTensor leaf's squares summed
+    across its shards)."""
+    leaves = [_sum_sq(x) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -73,6 +87,16 @@ def apply_updates(cfg: OptimizerConfig, params: Params, grads: Params,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(b1, device=step.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(b2, device=step.device), stepf)
+    sharded = any(isinstance(p, DTensor) for p in params.values())
+    # the 0-dim scalars above are the same on every rank: replicated
+    with implicit_replication() if sharded else contextlib.nullcontext():
+        _adamw(cfg, params, grads, state, scale, lr, bc1, bc2)
+    state["step"] = step
+    return {"lr": lr, "grad_norm": gnorm, "step": step}
+
+
+def _adamw(cfg, params, grads, state, scale, lr, bc1, bc2) -> None:
+    b1, b2 = cfg.b1, cfg.b2
     for name, p in params.items():
         m, v = state["m"][name], state["v"][name]
         g = grads[name].float() * scale
@@ -82,5 +106,3 @@ def apply_updates(cfg: OptimizerConfig, params: Params, grads: Params,
         if p.ndim >= 2:                       # decay matrices, not norms
             delta.add_(cfg.weight_decay * p.float())
         p.copy_(p.float() - lr * delta)
-    state["step"] = step
-    return {"lr": lr, "grad_norm": gnorm, "step": step}

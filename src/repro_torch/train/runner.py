@@ -18,6 +18,11 @@ Counterpart of ``repro.train.runner``, with its behaviour:
 
 ``float(loss)`` waits for each step on the device, as the reference's
 ``jax.device_get`` does, so a step time is the step's own.
+
+On several ranks (a sharded model) every rank runs the loop: the ranks
+agree on a preemption at each step (one rank's SIGTERM stops them all at
+the same step, where they save together), and the spike guard's copy and
+restore work on DTensors as on tensors.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.train import checkpoint as ckpt
 
@@ -70,6 +76,17 @@ def _load(lm, state) -> Any:
     state."""
     lm.load_state_dict(state["params"])
     return state["opt"]
+
+
+def _any_rank(flag: bool) -> bool:
+    """``flag`` on any rank of the default group (itself on one rank)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def run(cfg: RunnerConfig, train_step: Callable, lm: torch.nn.Module,
@@ -130,6 +147,7 @@ def run(cfg: RunnerConfig, train_step: Callable, lm: torch.nn.Module,
             steps_run += 1
             if step % cfg.log_every == 0:
                 log(f"step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            preempted["flag"] = _any_rank(preempted["flag"])
             if step % cfg.ckpt_every == 0 or preempted["flag"]:
                 ckpt.save(cfg.ckpt_dir, step, _state(lm, opt_state))
                 ckpt.gc_old(cfg.ckpt_dir, cfg.keep_last)

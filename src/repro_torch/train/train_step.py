@@ -4,10 +4,15 @@ accumulation.
 Counterpart of ``repro.train.train_step``.  The step works on the model
 in place: it sets the gradients anew, runs ``lm.loss(batch).backward()``
 and then :func:`repro_torch.train.optimizer.apply_updates`.
+
+On a sharded model (DTensor parameters and batch) each rank splits its own
+rows of the batch into the microbatches: the mean over all of them is the
+global batch's, whichever rows a microbatch holds.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import LM
 from repro_torch.train import optimizer as opt
@@ -31,15 +36,31 @@ def make_train_step(lm: LM, ocfg: opt.OptimizerConfig,
             loss.backward()
         else:
             loss = torch.zeros((), device=lm.device)
-            pieces = {k: x.reshape(microbatches, x.shape[0] // microbatches,
-                                   *x.shape[1:]) for k, x in batch.items()}
-            for i in range(microbatches):
-                mloss = lm.loss({k: x[i] for k, x in pieces.items()})
+            for piece in _pieces(batch, microbatches):
+                mloss = lm.loss(piece)
                 (mloss / microbatches).backward()
-                loss = loss + mloss.detach() / microbatches
+                loss = loss + _plain(mloss.detach()) / microbatches
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         stats = opt.apply_updates(ocfg, params, grads, opt_state)
-        return lm, opt_state, {"loss": loss.detach(), **stats}
+        return lm, opt_state, {"loss": _plain(loss.detach()), **stats}
 
     return train_step
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _pieces(batch: dict, n: int) -> list[dict]:
+    """``batch`` cut into ``n`` microbatches along the leading dim (a DTensor
+    leaf: its local rows, each piece keeping its placements)."""
+    out = [{} for _ in range(n)]
+    for k, x in batch.items():
+        local = x.to_local() if isinstance(x, DTensor) else x
+        rows = local.reshape(n, local.shape[0] // n, *local.shape[1:])
+        for i in range(n):
+            out[i][k] = (DTensor.from_local(rows[i], x.device_mesh,
+                                            x.placements, run_check=False)
+                         if isinstance(x, DTensor) else rows[i])
+    return out

@@ -306,7 +306,7 @@ COPIED = [
     "configs/mamba2_1p3b.py", "configs/moonshot_16b_a3b.py",
     "configs/musicgen_medium.py", "configs/qwen3_32b.py",
     "configs/recurrentgemma_2b.py", "configs/starcoder2_7b.py",
-    "data/pipeline.py",
+    "data/pipeline.py", "launch/report.py",
 ]
 
 #: module -> (top-level definitions of the reference that the port leaves
@@ -314,6 +314,13 @@ COPIED = [
 #: ``ast.unparse`` of both stripped modules that a line diff shows, "-" the
 #: reference's and "+" the port's, in order)
 ALLOWED = {
+    "launch/report.py": (
+        set(),
+        "the table's default mesh is the port's production mesh, 32x8",
+        [
+            "-    ap.add_argument('--mesh', default='16x16')",
+            "+    ap.add_argument('--mesh', default='32x8')",
+        ]),
     "fleet/__main__.py": (
         set(),
         "--device picks where the index builds (the tenants' too) and the "

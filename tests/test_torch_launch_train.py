@@ -10,9 +10,9 @@
 * The audio and VLM families' batches (frames and image embeddings drawn
   from a ``torch.Generator`` seeded with the step: a deliberate
   difference from ``jax.random``), microbatches, the default device
-  without a card, and a world of more than one rank.
+  without a card, and a world of more than one rank (placed on its
+  production mesh).
 """
-import argparse
 import contextlib
 import io
 import os
@@ -144,8 +144,27 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
         port_train.main(["--smoke", "--steps", "1", "--ckpt", str(tmp_path)])
 
 
-def test_more_than_one_rank_is_refused(monkeypatch, tmp_path):
-    monkeypatch.setattr(port_train, "make_production_mesh",
-                        lambda device: argparse.Namespace(size=lambda: 4))
-    with pytest.raises(SystemExit, match="4 ranks"):
-        port_train.build(_args(device="cpu", ckpt=str(tmp_path)))
+def test_more_than_one_rank_is_refused(tmp_path):
+    """Named for the refusal it replaced: a world of more than one rank is
+    now placed, not refused.  ``build`` puts the model on the production
+    mesh of the world, its parameters DTensors under the sharding rules
+    (here a fake world of 4 ranks; the training itself is
+    ``test_torch_train_multirank.py``'s)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.models import parallel
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            lm = port_train.build(_args(device="cpu", ckpt=str(tmp_path),
+                                        smoke=True))
+        assert text.getvalue() == ("gemma-2b-smoke: 0.1M params on 4 "
+                                   "devices (tp_fsdp)\n")
+        assert parallel.is_sharded(lm)
+        assert lm.embed.device_mesh.mesh_dim_names == ("data", "model")
+        assert tuple(lm.embed.device_mesh.shape) == (1, 4)
+        assert lm.embed.to_local().shape == (256 // 4, 64)
+    finally:
+        dist.destroy_process_group()
