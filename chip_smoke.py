@@ -10,7 +10,9 @@ and the LM serving and training paths:
   1M: the build's RobustPrune is host numpy, as in the reference; 100,000
   keeps the phases' sum under 1,000 s of the 1,200 s limit since step 14);
 * retrieval-augmented generation with gemma-2b at its full width over a
-  4,096-document corpus, and gemma-2b's training steps at that width.
+  4,096-document corpus, and gemma-2b's training steps at that width;
+* the four examples of ``examples/torch/`` as a user runs them, the 100M
+  trainer at its full width.
 
 1. build the three CUDA kernels from this checkout's sources (one nvcc
    each, all started together);
@@ -73,8 +75,9 @@ and the LM serving and training paths:
    committed calibration table): the cluster fleet twice, which must give
    the same JSON; the graph fleet, which must give the reference's 60.3254
    virtual queries/s; the write path (``--scenario rw``) and ``--tenants``,
-   each of which must give one JSON (the ``--device cpu`` runs are
-   the CPU parity tests', ``tests/test_torch_serving.py``);
+   each of which must give one JSON; the five processes run at once (the
+   ``--device cpu`` runs are the CPU parity tests',
+   ``tests/test_torch_serving.py``);
 11. the auto-tuner (``repro_torch.tuning``) at the CLI's defaults (n =
    1,000,000 screened, dim 960): first ``l2_topk`` at a rung's ground truth
    (56 x 3,000 x 960, k = 10; each call's device time beside the plain
@@ -92,12 +95,15 @@ and the LM serving and training paths:
    activations over f32 weights drawn from seed 0 on the host): embed 4,096
    documents and 64 requests, ``ClusterIndex.build`` (closure through
    ``l2_topk`` at D = 2,048), ``run_workload`` over ``tos`` (recall@4
-   against ``exact_topk``), 8 greedy tokens a request; prefill and decode
+   against ``exact_topk`` at ``launch/serve.py``'s nprobe 8, and at 64 and every
+   list on the same index, where the ids must be ``exact_topk``'s up to
+   near-ties), 8 greedy tokens a request; prefill and decode
    time of 16 requests and one under the profiler; the logits of 4 held to
    the teacher-forced full forward in f32 (no TF32) and in bf16; ``l2_topk``
    at the closure's and the ground truth's shapes against its plain
-   version; then ``python -m repro_torch.launch.serve`` on the card (its
-   ``--device cpu`` run is the CPU tests', ``tests/test_torch_lm_serve.py``);
+   version; ``python -m repro_torch.launch.serve`` on the card runs in step
+   14b (its ``--device cpu`` run is the CPU tests',
+   ``tests/test_torch_lm_serve.py``);
 13. training (``launch/train.py``'s ``build`` and ``train``, the runner,
    AdamW, remat) at gemma-2b's full width on step 12's weights: 6 steps at
    batch 8 x 256 tokens with finite losses and gradient norms, step 0's
@@ -109,18 +115,28 @@ and the LM serving and training paths:
    activations and the optimizer's traffic); a 1-layer model at
    gemma-2b's widths one step on the card against the CPU (f32); at the
    smoke config 30 steps with a falling loss, and a SIGTERM preemption
-   whose resume ends on the uninterrupted run's parameters; then
-   ``python -m repro_torch.launch.train --smoke --steps 3`` on the card.
-   The training path launches none of the three kernels;
+   whose resume ends on the uninterrupted run's parameters; ``python -m
+   repro_torch.launch.train --smoke --steps 3`` on the card runs in step
+   14b.  The training path launches none of the three kernels;
 14a. the smoke config trained 3 steps through the DTensor path
    (``models/parallel.py``) on an explicit 1x1 mesh over one NCCL rank,
    whose losses must equal the plain path's within 1e-6 relative;
 14b. ``python -m repro_torch.launch.dryrun`` in three subprocesses (gemma-2b
-   ``train_4k`` and ``decode_32k``, and ``--vector-search``), each one sharded
-   step on a fake world of 256 ranks with fake tensors: status ``ok`` and a
-   per-rank peak under the card's memory are required; the trace time, the
-   FLOP count against the analytic FLOPs, the collectives and the roofline
-   terms are printed.
+   ``train_4k`` and ``decode_32k``, and ``--vector-search``), each one
+   sharded step on a fake world of 256 ranks with fake tensors: status
+   ``ok`` and a per-rank peak under the card's memory are required; the
+   trace time, the FLOP count against the analytic FLOPs, the collectives
+   and the roofline terms are printed.  The serve and train CLIs of steps
+   12 and 13 run at the same time, five subprocesses in all;
+15. the examples (``examples/torch/*.py``), each ``main([..., "--device",
+   "cuda"])`` in this process: ``quickstart`` (``l2_topk`` and
+   ``adc_lookup`` must launch) and ``rag_serving``, each also with
+   ``--device cpu``, whose lines and retrieved documents the card's must
+   equal up to near-ties; the ``cloud_tuning`` screen, whose lines must
+   equal the CPU's; ``train_lm`` at its full 100M width, 150 steps at 8 x
+   128 in a fresh ``--ckpt`` (its own "loss fell" check; ms a step, AdamW,
+   tokens/s, peak memory, each checkpoint's seconds), then again on the
+   same directory, which must resume at step 150 and run no step.
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; the comparisons in step 4 and the calibration are not counted.
@@ -168,6 +184,41 @@ def phase(name: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t0:.3f} s", flush=True)
     return now
+
+
+def run_together(cmds: dict, env: dict, timeout: float) -> dict:
+    """Start every argv of ``cmds`` at once from this checkout's root and
+    wait for all of them: ``{name: (returncode, stdout, stderr, wall s from
+    the common start to that process's end)}``.  The processes are
+    independent (their own CUDA context, or none), so the phase takes the
+    slowest one's time, not the sum.  Past ``timeout`` every process still
+    running is killed, and so is any left when this raises."""
+    root = Path(__file__).resolve().parent
+    procs, ends = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as d:
+        try:
+            t0 = time.perf_counter()
+            for name, argv in cmds.items():
+                with open(Path(d, f"{name}.out"), "w") as fo, \
+                        open(Path(d, f"{name}.err"), "w") as fe:
+                    procs[name] = subprocess.Popen(argv, cwd=root, env=env,
+                                                   stdout=fo, stderr=fe)
+            while len(ends) < len(procs):
+                for name, proc in procs.items():
+                    if name not in ends and proc.poll() is not None:
+                        ends[name] = time.perf_counter() - t0
+                require(time.perf_counter() - t0 <= timeout,
+                        f"{sorted(set(procs) - set(ends))} ran past "
+                        f"{timeout} s")
+                time.sleep(0.05)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return {name: (proc.returncode, Path(d, f"{name}.out").read_text(),
+                       Path(d, f"{name}.err").read_text(), ends[name])
+                for name, proc in procs.items()}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -380,6 +431,18 @@ def near_tie_rows(got_ids, want_ids, q, x, tol_row) -> tuple[int, bool]:
     return len(diff), bool((gap <= 2 * tol_row[diff][:, None]).all())
 
 
+def flip_at_boundary(xp, li: int, cents64, cn64, thresh: float, r: int) -> bool:
+    """Whether closure pair (point ``xp``, list ``li``), kept on one side and
+    not the other, lies within f32 rounding (float64 distances) of the
+    ``thresh`` x nearest threshold or of the rank-``r`` boundary."""
+    d64 = cn64 - 2.0 * (cents64 @ xp) + (xp * xp).sum()
+    srt = d64.sort().values
+    tol_p = TOL * ((xp * xp).sum() + cn64.max()).item()
+    at_thresh = abs(d64[li].item() - thresh * srt[0].item()) <= 2 * tol_p
+    at_rank_r = abs(d64[li].item() - srt[r - 1].item()) <= 2 * tol_p
+    return at_thresh or at_rank_r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -417,7 +480,7 @@ def main(argv=None) -> int:
                     "graph_queries": args.graph_queries}
 
     # ---- 1. kernels, built from this checkout --------------------------
-    t = time.perf_counter()
+    t = t_first = time.perf_counter()
     for src, log in _build.build_all().items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -637,12 +700,7 @@ def main(argv=None) -> int:
         for code in sides[0] ^ sides[1]:
             p, li = divmod(code, L)
             xp = torch.from_numpy(data[p].astype(np.float64)).to(dev)
-            d64 = cn64 - 2.0 * (cents64 @ xp) + (xp * xp).sum()
-            srt = d64.sort().values
-            tol_p = TOL * ((xp * xp).sum() + cn64.max()).item()
-            at_thresh = abs(d64[li].item() - thresh * srt[0].item()) <= 2 * tol_p
-            at_rank_r = abs(d64[li].item() - srt[r - 1].item()) <= 2 * tol_p
-            require(at_thresh or at_rank_r,
+            require(flip_at_boundary(xp, li, cents64, cn64, thresh, r),
                     f"closure pair (point {p}, list {li}) flipped away from "
                     f"the threshold and the rank-{r} boundary")
             n_flip += 1
@@ -849,8 +907,6 @@ def main(argv=None) -> int:
     gemma = ARCHS["gemma-2b"]
     params = rag(dev, peaks, kernels, report, launches, gemma, RAG_CORPUS)
     t = phase("RAG at gemma-2b's full width", t)
-    serve_cli(report)
-    t = phase("serve CLI on the card", t)
 
     # ---- 13. training at gemma-2b's full width -------------------------
     first_layer = {k: v.cpu() for k, v in params.items()
@@ -861,14 +917,20 @@ def main(argv=None) -> int:
     t = phase("training: one layer at gemma-2b's widths, card vs CPU", t)
     train_smoke(dev, report, launches)
     t = phase("training: smoke config, preemption and resume", t)
-    train_cli(report)
-    t = phase("train CLI on the card", t)
 
     # ---- 14. training through DTensors, and the dry-run -----------------
     train_dtensor(dev, report, launches)
     t = phase("training through DTensors on a 1x1 mesh (one NCCL rank)", t)
-    dryrun(report)
-    t = phase("dry-run: 3 cells on a fake 256-rank world", t)
+    clis(report)
+    t = phase("serve CLI and train CLI on the card, and the dry-run's 3 "
+              "cells on a fake 256-rank world, at once", t)
+
+    # ---- 15. the examples on the card ------------------------------------
+    examples(dev, peaks, report, launches)
+    t = phase("examples: quickstart, cloud_tuning, rag_serving (card and "
+              "CPU), train_lm at 100M", t)
+    report["phases_s"] = t - t_first
+    print(f"phases: {report['phases_s']:.3f} s in all", flush=True)
 
     for kern in kernels:
         kern["launches"] = sum(c[kern["name"]] for c in launches.values())
@@ -1439,8 +1501,9 @@ def fleet_cli(report) -> None:
     graph fleet, which must give the reference's virtual queries/s, the
     write path (``docs/ingest.md``'s command) and the tenants of
     ``docs/tenancy.md`` with a weighted 4 MiB cache, each of which must
-    give one JSON.  (The ``--device cpu`` runs are the CPU parity tests':
-    ``tests/test_torch_serving.py`` holds them to the reference.)"""
+    give one JSON; the five processes run at once.  (The ``--device cpu``
+    runs are the CPU parity tests': ``tests/test_torch_serving.py`` holds
+    them to the reference.)"""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     tmp = tempfile.TemporaryDirectory()
@@ -1453,18 +1516,17 @@ def fleet_cli(report) -> None:
     tenants = ["--tenants", str(spec), "--cache-mb", "4", "--cache-policy",
                "weighted"]
     runs = {}
-    for name, flags in (("cluster", cluster), ("cluster_again", cluster),
-                        ("graph", graph), ("rw", rw), ("tenants", tenants)):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.fleet", "--compact", *flags],
-            cwd=root, env=env, capture_output=True, text=True,
-            timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        require(proc.returncode == 0, f"fleet CLI {name} exited "
-                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    cmds = {name: [sys.executable, "-m", "repro_torch.fleet", "--compact",
+                   *flags]
+            for name, flags in (("cluster", cluster), ("cluster_again", cluster),
+                                ("graph", graph), ("rw", rw),
+                                ("tenants", tenants))}
+    done = run_together(cmds, env, CLI_TIMEOUT_S)
+    for name, (rc, stdout, stderr, wall) in done.items():
+        flags = cmds[name][4:]
+        require(rc == 0, f"fleet CLI {name} exited {rc}: {stderr[-2000:]}")
         try:
-            out = json.loads(proc.stdout)
+            out = json.loads(stdout)
         except json.JSONDecodeError:
             out = None
         require(isinstance(out, dict) and "recall" in out,
@@ -1484,7 +1546,7 @@ def fleet_cli(report) -> None:
                 "write_amplification")}
         print(f"fleet CLI {name} ({' '.join(flags)}): recall {out['recall']}, "
               f"virtual {qps} queries/s{' (aggregate goodput)' if 'tenants' in rep else ''}, "
-              f"p99 {p99} s, {wall:.3f} s wall")
+              f"p99 {p99} s, {wall:.3f} s wall (the five run together)")
     tmp.cleanup()
     require(runs["cluster"] == runs["cluster_again"],
             "the fleet CLI's cluster JSON differs between two runs on the card")
@@ -1849,7 +1911,8 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
     """``launch/serve.py``'s pipeline on the card at ``cfg``'s width: embed
     ``corpus`` documents and 64 requests, index them with
     ``ClusterIndex.build`` (closure through ``l2_topk``), retrieve, generate
-    8 tokens a request; recall@4 against ``exact_topk``; prefill and decode
+    8 tokens a request; recall@4 against ``exact_topk`` at nprobe 8, 64 and
+    every list (:func:`rag_recall_sweep`); prefill and decode
     time of 16 requests; the logits of 4 against the f32 and the bf16 full
     forward, teacher-forced; ``l2_topk`` at the closure's and the ground
     truth's shapes against its plain version.  Returns the LM's weights
@@ -1899,6 +1962,7 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
           f"virtual p50 {p50 * 1e3:.3f} ms, {rep.mean_bytes_read / 1e3:.3f} "
           f"KB/query; serve {serve_s:.1f} s (embed, build, retrieve, "
           f"generate {RAG_REQUESTS} requests)", flush=True)
+    sweep = rag_recall_sweep(run, gt, recall)
 
     lm = run.lm
     step_bytes = 8 * n_params      # f32 read 4, bf16 cast written 2, read 2
@@ -2000,7 +2064,8 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
                                       *(c_["max_abs_err"] for c_ in cases))
     report["rag"] = {
         "config": cfg.name, "parameters": n_params, "init_s": init_s,
-        "serve_s": serve_s, "recall": recall, "p50_s": p50,
+        "serve_s": serve_s, "recall": recall, "recall_sweep": sweep,
+        "p50_s": p50,
         "kb_per_query": rep.mean_bytes_read / 1e3,
         "prefill_ms": pre_ms, "decode_ms_per_token": dec_ms,
         "decode_bound_ms": step_bytes / peaks[1] * 1e3,
@@ -2013,29 +2078,64 @@ def rag(dev, peaks, kernels, report, launches, cfg, corpus) -> dict:
     return params
 
 
-def serve_cli(report) -> None:
+def rag_recall_sweep(run, gt: np.ndarray, recall8: float) -> dict:
+    """recall@4 of the RAG index at nprobe 8 (``launch/serve.py``'s), 64 and every
+    list, on the same queries (host simulation over the card-built index),
+    with the list count and the mean pairwise cosine of the document
+    embeddings.  Every list makes the search exhaustive: its ids must be
+    ``exact_topk``'s up to near-ties (the host scan and the kernel sum in
+    other orders), and recall must not fall as nprobe grows."""
+    from repro_torch.core.types import SearchParams, recall_at_k
+    from repro_torch.serving.engine import run_workload
+    from repro_torch.storage.spec import TOS
+
+    n_lists = run.index.meta.n_lists
+    recalls, t0 = {8: recall8}, time.perf_counter()
+    for nprobe in (64, n_lists):
+        rep = run_workload(run.index, run.qv, SearchParams(k=RAG_K,
+                                                           nprobe=nprobe),
+                           TOS, concurrency=RAG_REQUESTS)
+        recalls[nprobe] = float(np.mean([recall_at_k(r.ids[:RAG_K], gt[r.qid])
+                                         for r in rep.records]))
+    got = np.stack([r.ids[:RAG_K] for r in
+                    sorted(rep.records, key=lambda r: r.qid)])
+    qt, xt = torch.from_numpy(run.qv), torch.from_numpy(run.vecs)
+    tol_row = TOL * ((qt * qt).sum(-1) + (xt * xt).sum(-1).max()) + 1e-6
+    n_diff, ties = near_tie_rows(torch.from_numpy(got), torch.from_numpy(gt),
+                                 qt, xt, tol_row)
+    require(ties, f"RAG: probing all {n_lists} lists, {n_diff} rows differ "
+            f"from exact_topk beyond near-ties")
+    require(recalls[8] <= recalls[64] <= recalls[n_lists],
+            f"RAG: recall@{RAG_K} falls as nprobe grows: {recalls}")
+    n = len(run.vecs)
+    gram = run.vecs.astype(np.float64) @ run.vecs.T.astype(np.float64)
+    cos = float((gram.sum() - np.trace(gram)) / (n * (n - 1)))
+    print(f"RAG recall@{RAG_K} against exact_topk at nprobe 8 / 64 / all "
+          f"{n_lists} lists: {recalls[8]:.4f} / {recalls[64]:.4f} / "
+          f"{recalls[n_lists]:.4f} ({n_diff} of {len(got)} rows at every "
+          f"list differ from exact_topk, all near-ties); mean pairwise "
+          f"cosine of the {n} document embeddings {cos:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"n_lists": n_lists, "recall": {str(k): v for k, v in recalls.items()},
+            "all_lists_rows_differing": n_diff, "mean_pairwise_cosine": cos}
+
+
+SERVE_CLI = ["-m", "repro_torch.launch.serve", "--arch", "gemma-2b",
+             "--requests", "4", "--tokens", "8"]
+
+
+def check_serve_cli(report, result) -> None:
     """``python -m repro_torch.launch.serve`` as a user runs it (the smoke
     config) on the card: it must exit 0 and print a line for each request
     (the ``--device cpu`` run is a CPU test's)."""
-    root = Path(__file__).resolve().parent
-    for name, flags in (("card", []),):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             "gemma-2b", "--requests", "4", "--tokens", "8", *flags],
-            cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
-            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        require(proc.returncode == 0, f"serve CLI ({name}) exited "
-                f"{proc.returncode}: {proc.stderr[-2000:]}")
-        lines = proc.stdout.splitlines()
-        reqs = sorted(int(ln.split()[1].rstrip(":")) for ln in lines
-                      if ln.startswith("request "))
-        require(reqs == [0, 1, 2, 3], f"serve CLI ({name}) printed requests "
-                f"{reqs}")
-        report.setdefault("serve_cli", {})[name] = {"wall_s": wall,
-                                                    "stdout": proc.stdout}
-        print(f"serve CLI ({name}), {wall:.3f} s:\n{proc.stdout.rstrip()}")
+    rc, stdout, stderr, wall = result
+    require(rc == 0, f"serve CLI exited {rc}: {stderr[-2000:]}")
+    lines = stdout.splitlines()
+    reqs = sorted(int(ln.split()[1].rstrip(":")) for ln in lines
+                  if ln.startswith("request "))
+    require(reqs == [0, 1, 2, 3], f"serve CLI printed requests {reqs}")
+    report["serve_cli"] = {"card": {"wall_s": wall, "stdout": stdout}}
+    print(f"serve CLI (card), {wall:.3f} s:\n{stdout.rstrip()}")
 
 
 # ---- 13. training ---------------------------------------------------------
@@ -2061,18 +2161,19 @@ RESUME_ATOL = 1e-5
 
 
 def train_bounds(cfg, n_params: int, batch: int, seq: int, peaks,
-                 bf16_peak: float) -> dict:
+                 bf16_peak: float, passes: int = 4) -> dict:
     """The least time of one training step of the dense ``cfg`` with remat:
-    operations, the matrix products of 4 forward passes (the forward, the
-    units' and loss chunks' recompute, and a backward of 2) at the card's
-    dense BF16 peak, dense attention counting all seq x seq scores (they are
-    masked, not skipped); bytes, the step function's inputs read once and
+    operations, the matrix products of ``passes`` = 4 forward passes (the
+    forward, the units' and loss chunks' recompute, and a backward of 2;
+    3 without remat) at ``bf16_peak`` (the card's dense BF16 peak; its FP32
+    peak for an f32 model), dense attention counting all seq x seq scores
+    (they are masked, not skipped); bytes, the step function's inputs read once and
     outputs written once (f32 parameters, m and v: 24 bytes a parameter;
     the gradients are intermediates)."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     glu = 3 if cfg.mlp in ("swiglu", "geglu") else 2
     layer = 2 * D * hd * (2 * H + 2 * KV) + 2 * glu * D * cfg.d_ff + 4 * seq * H * hd
-    flops = 4.0 * batch * seq * (cfg.n_layers * layer + 2 * D * cfg.vocab)
+    flops = passes * batch * seq * (cfg.n_layers * layer + 2 * D * cfg.vocab)
     nbytes = 24.0 * n_params
     ops_ms, bytes_ms = flops / bf16_peak * 1e3, nbytes / peaks[1] * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
@@ -2392,26 +2493,16 @@ def train_smoke(dev, report, launches) -> None:
     tmp.cleanup()
 
 
-def train_cli(report) -> None:
+def check_train_cli(report, result) -> None:
     """``python -m repro_torch.launch.train --smoke --steps 3`` on the card
     as a user runs it: exit 0 and the reference's two lines."""
-    root = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckdir:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-             "--steps", "3", "--ckpt", ckdir],
-            cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
-            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"train CLI exited {proc.returncode}: "
-            f"{proc.stderr[-2000:]}")
-    lines = proc.stdout.splitlines()
+    rc, stdout, stderr, wall = result
+    require(rc == 0, f"train CLI exited {rc}: {stderr[-2000:]}")
+    lines = stdout.splitlines()
     require(lines[0].startswith("gemma-2b-smoke: ") and lines[-1].startswith(
-        "done: 3 steps, loss "), f"train CLI printed {proc.stdout!r}")
-    report["train_cli"] = {"wall_s": wall, "stdout": proc.stdout}
-    print(f"train CLI on the card, {wall:.3f} s:\n{proc.stdout.rstrip()}")
-
+        "done: 3 steps, loss "), f"train CLI printed {stdout!r}")
+    report["train_cli"] = {"wall_s": wall, "stdout": stdout}
+    print(f"train CLI on the card, {wall:.3f} s:\n{stdout.rstrip()}")
 
 
 # ---- 14. training through DTensors, and the dry-run ----------------------
@@ -2481,58 +2572,392 @@ def train_dtensor(dev, report, launches) -> None:
         tmp.cleanup()
 
 
-def dryrun(report) -> None:
+def check_dryrun(report, done: dict, outdir: str) -> None:
     """``python -m repro_torch.launch.dryrun`` as a user runs it, one
-    subprocess a cell of ``DRYRUN_CELLS``: each must exit 0 with status
-    ``ok`` and a per-rank peak under the card's memory."""
-    root = Path(__file__).resolve().parent
+    subprocess a cell of ``DRYRUN_CELLS`` (``done``: their results by
+    cell): each must exit 0 with status ``ok`` and a per-rank peak under
+    the card's memory."""
     total = torch.cuda.get_device_properties(0).total_memory
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
     cells = {}
+    for (arch, shape), (rc, _, stderr, wall) in done.items():
+        tag = (f"{arch}_{shape}_32x8" if shape else "vector-search_32x8")
+        require(rc == 0, f"dry-run {tag} exited {rc}: {stderr[-3000:]}")
+        rec = json.loads(Path(outdir, tag + ".json").read_text())
+        peak = rec["memory"]["peak_size_in_bytes"]
+        require(rec["status"] == "ok" and peak < total,
+                f"dry-run {tag}: status {rec['status']}, peak {peak} "
+                f"bytes a rank of the card's {total}")
+        roof = rec["roofline"]
+        if shape is None:
+            counted = rec["cost"]["flops_per_device"] * rec["chips"]
+            analytic = roof["model_flops"]
+            coll = rec["collective_bytes"]
+        else:
+            counted = (roof["raw_cost_analysis"]["flop_counter_per_device"]
+                       * rec["chips"])
+            analytic = roof["hlo_flops_global"]
+            coll = roof["coll_breakdown"]
+        trace_s = rec.get("trace_s")
+        print(f"dry-run {tag} ({rec['chips']} fake ranks): {rec['status']}, "
+              f"trace {trace_s} s, process {wall:.1f} s; peak "
+              f"{peak / 2**30:.3f} GiB a rank of {total / 2**30:.1f} GiB "
+              f"(arguments {rec['memory']['argument_size_in_bytes'] / 2**30:.3f} "
+              f"GiB); FLOP counter x ranks {counted:.4g} vs analytic "
+              f"{analytic:.4g} ({counted / analytic:.3f}); collectives "
+              f"{rec['collective_counts']}, bytes a rank {coll}; roofline "
+              f"compute {roof['compute_s']:.4g} s, memory "
+              f"{roof['memory_s']:.4g} s, collective "
+              f"{roof['collective_s']:.4g} s", flush=True)
+        cells[tag] = {"process_s": wall, "record": rec}
+    report["dryrun"] = cells
+
+
+def clis(report) -> None:
+    """The serve CLI, the train CLI and the dry-run's cells as users run
+    them, each a subprocess, all five at once (none needs another's output;
+    together they take about the slowest one's time)."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clis_") as d:
+        cmds = {"serve": [sys.executable, *SERVE_CLI],
+                "train": [sys.executable, "-m", "repro_torch.launch.train",
+                          "--smoke", "--steps", "3", "--ckpt",
+                          str(Path(d, "ckpt"))]}
+        cells = {f"dryrun_{i}": cell for i, cell in enumerate(DRYRUN_CELLS)}
+        for key, (arch, shape) in cells.items():
+            cmds[key] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         *(["--vector-search"] if shape is None
+                           else ["--arch", arch, "--shape", shape]),
+                         "--out", d]
+        done = run_together(cmds, dict(os.environ, PYTHONPATH=str(root / "src")),
+                            CLI_TIMEOUT_S)
+        check_serve_cli(report, done["serve"])
+        check_train_cli(report, done["train"])
+        check_dryrun(report, {cell: done[key] for key, cell in cells.items()}, d)
+
+
+# ---- 15. the examples on the card -------------------------------------------
+
+#: train_lm.py's defaults: 150 steps at 8 x 128, a checkpoint every 50
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_BATCH, EXAMPLE_TRAIN_SEQ = 150, 8, 128
+#: a quickstart line and the structures beneath it: a line may differ from
+#: the CPU run's only where one of these differs (up to near-ties)
+QUICKSTART_FEEDS = {"posting lists": ("cluster",), "SPANN ": ("cluster", "gt"),
+                    "cluster: total": ("cluster",), "DiskANN ": ("graph", "gt")}
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` of this checkout, as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def captured(fn, *a, **kw) -> tuple:
+    """``fn``'s result, its printed lines and its wall seconds (synced)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def closure_codes(index) -> set:
+    """The cluster index's (list, point) pairs as ``list * n + point``."""
+    n = index.meta.n_data
+    return {li * n + int(p) for li in range(index.meta.n_lists)
+            for p in index.store.get(("list", li))[0]}
+
+
+def example_quickstart(dev, launches) -> dict:
+    """``quickstart.py`` on the card, then on the CPU: the card's run must
+    launch ``l2_topk`` and ``adc_lookup``, and every line must equal the
+    CPU's unless a structure beneath it differs, each such difference a
+    near-tie (ground-truth rows, closure pairs) or counted (the graph's
+    adjacency rows and PQ codes, which the card's greedy search and PQ
+    training sum in another order)."""
+    mod = load_example("quickstart")
+    reset()
+    card, lines, card_s = captured(mod.main, ["--device", "cuda"])
+    c = launches["example_quickstart"] = counts()
+    require(c["l2_topk"] > 0 and c["adc_lookup"] > 0,
+            f"quickstart on the card launched {c}")
+    cpu, cpu_lines, cpu_s = captured(mod.main, ["--device", "cpu"])
+    print(f"example quickstart on the card, {card_s:.3f} s (the CPU's run "
+          f"{cpu_s:.3f} s); launches {c}:\n" + "\n".join(lines), flush=True)
+    require(len(lines) == len(cpu_lines),
+            f"quickstart: {len(lines)} lines on the card, {len(cpu_lines)} on "
+            f"the CPU")
+
+    q = torch.from_numpy(card["queries"]).to(dev)
+    x = torch.from_numpy(card["data"]).to(dev)
+    tol_row = TOL * ((q * q).sum(-1) + (x * x).sum(-1).max()) + 1e-6
+    gt_rows, ties = near_tie_rows(torch.from_numpy(card["gt"]).to(dev),
+                                  torch.from_numpy(cpu["gt"]).to(dev), q, x,
+                                  tol_row)
+    require(ties, f"quickstart: exact_topk differs from the CPU's beyond "
+            f"near-ties in {gt_rows} rows")
+    ci, cci = card["cluster"], cpu["cluster"]
+    cents = ci.meta.tree.centroids
+    require(np.array_equal(cents, cci.meta.tree.centroids),
+            "quickstart: the host BKT gave other centroids on the card's run")
+    cents64 = torch.from_numpy(cents.astype(np.float64)).to(dev)
+    cn64 = (cents64 * cents64).sum(-1)
+    p_ = ci.meta.params
+    thresh, r = (1.0 + p_.closure_eps) ** 2, min(p_.num_replica, len(cents))
+    flipped = closure_codes(ci) ^ closure_codes(cci)
+    for code in flipped:
+        li, pt = divmod(code, ci.meta.n_data)
+        xp = torch.from_numpy(card["data"][pt].astype(np.float64)).to(dev)
+        require(flip_at_boundary(xp, li, cents64, cn64, thresh, r),
+                f"quickstart: closure pair (point {pt}, list {li}) differs "
+                f"from the CPU's away from the threshold and the rank-{r} "
+                f"boundary")
+    gi, cgi = card["graph"], cpu["graph"]
+    adj_rows = sum(not np.array_equal(gi.store.get(("node", i))[1],
+                                      cgi.store.get(("node", i))[1])
+                   for i in range(gi.meta.n_data))
+    code_rows = int((gi.meta.codes != cgi.meta.codes).any(1).sum())
+    beneath = {"gt": gt_rows > 0, "cluster": bool(flipped),
+               "graph": adj_rows > 0 or code_rows > 0}
+    differing = [(a, b) for a, b in zip(lines, cpu_lines) if a != b]
+    for a, b in differing:
+        feeds = [f for key, fs in QUICKSTART_FEEDS.items() if key in a
+                 for f in fs]
+        print(f"quickstart line differs: card {a!r}, CPU {b!r}")
+        require(any(beneath[f] for f in feeds), f"quickstart: a line differs "
+                f"with nothing beneath it differing: {a!r} vs {b!r}")
+    print(f"quickstart card vs CPU: {len(differing)} of {len(lines)} lines "
+          f"differ; beneath them {gt_rows} ground-truth rows (near-ties), "
+          f"{len(flipped)} closure pairs (at the boundary), {adj_rows} graph "
+          f"adjacency rows and {code_rows} PQ code rows of "
+          f"{gi.meta.n_data}", flush=True)
+    return {"card_s": card_s, "cpu_s": cpu_s, "lines": lines,
+            "cpu_lines": cpu_lines, "launches": c, "gt_rows": gt_rows,
+            "closure_pairs_flipped": len(flipped), "adjacency_rows": adj_rows,
+            "code_rows": code_rows}
+
+
+def example_cloud_tuning(launches) -> dict:
+    """``cloud_tuning.py``'s screen on the card and on the CPU: host
+    arithmetic, so the same lines."""
+    mod = load_example("cloud_tuning")
+    reset()
+    _, lines, card_s = captured(mod.main, ["--device", "cuda"])
+    c = launches["example_cloud_tuning"] = counts()
+    _, cpu_lines, cpu_s = captured(mod.main, ["--device", "cpu"])
+    require(lines == cpu_lines, "cloud_tuning: the card's screen printed "
+            "other lines than the CPU's")
+    print(f"example cloud_tuning (screen) on the card, {card_s:.3f} s (CPU "
+          f"{cpu_s:.3f} s), {len(lines)} lines equal to the CPU's; launches "
+          f"{c}:\n" + "\n".join(lines), flush=True)
+    return {"card_s": card_s, "cpu_s": cpu_s, "lines": lines, "launches": c}
+
+
+def example_rag(launches) -> dict:
+    """``rag_serving.py`` on the card, then on the CPU, on the same weights:
+    the tokens in the vocabulary, and each query's retrieved documents the
+    CPU's up to near-ties: where they differ, their float64 distances under
+    the CPU's embeddings, sorted, within what the two runs' embedding
+    difference ``e`` (the largest L2 norm of a vector's difference) can
+    move a squared distance between unit vectors, 8e + 4e^2, twice, plus the
+    f32 tolerance."""
+    mod = load_example("rag_serving")
+    reset()
+    card, lines, card_s = captured(mod.main, ["--device", "cuda"])
+    c = launches["example_rag_serving"] = counts()
+    require(c["l2_topk"] >= 1, f"rag_serving on the card launched {c}")
+    cpu, cpu_lines, cpu_s = captured(mod.main, ["--device", "cpu"])
+    vocab = mod.smoke(mod.ARCHS["gemma-2b"]).vocab
+    require(((card["tokens"] >= 0) & (card["tokens"] < vocab)).all(),
+            f"rag_serving: tokens outside the vocabulary: {card['tokens']}")
+    eps = max(float(np.linalg.norm(card[k] - cpu[k], axis=1).max())
+              for k in ("doc_vecs", "query_vecs"))
+    tol = 2 * (8 * eps + 4 * eps ** 2) + 2 * TOL * 2 + 1e-6
+    x64, q64 = cpu["doc_vecs"].astype(np.float64), cpu["query_vecs"].astype(np.float64)
+    rows = [sorted(rep.records, key=lambda r: r.qid)
+            for rep in (card["report"], cpu["report"])]
+    n_diff = 0
+    for rc, rp in zip(*rows):
+        a, b = rc.ids[:4], rp.ids[:4]
+        if np.array_equal(a, b):
+            continue
+        n_diff += 1
+        da, db = (np.sort(((x64[ids] - q64[rc.qid]) ** 2).sum(-1))
+                  for ids in (a, b))
+        require(bool((np.abs(da - db) <= tol).all()),
+                f"rag_serving query {rc.qid}: documents {a.tolist()} on the "
+                f"card, {b.tolist()} on the CPU, beyond a near-tie "
+                f"({np.abs(da - db).max():.3g} > {tol:.3g})")
+    print(f"example rag_serving on the card, {card_s:.3f} s (CPU {cpu_s:.3f} "
+          f"s); launches {c}:\n" + "\n".join(lines), flush=True)
+    print(f"rag_serving card vs CPU: embeddings within {eps:.3g} (L2); "
+          f"retrieved documents differ in {n_diff} of {len(rows[0])} queries, "
+          f"all near-ties; tokens card {card['tokens'].tolist()}, CPU "
+          f"{cpu['tokens'].tolist()} (equal: "
+          f"{bool(np.array_equal(card['tokens'], cpu['tokens']))})", flush=True)
+    return {"card_s": card_s, "cpu_s": cpu_s, "lines": lines,
+            "cpu_lines": cpu_lines, "embedding_diff_l2": eps,
+            "queries_differing": n_diff, "launches": c}
+
+
+def example_train(peaks, launches) -> dict:
+    """``train_lm.py`` at its full 100M width on the card, as a user runs it
+    (150 steps at 8 x 128, a checkpoint every 50) in a fresh ``--ckpt``: it
+    must pass its own "loss fell" check; each step and AdamW update timed
+    with CUDA events, each checkpoint's save on the host clock, the peak
+    memory.  A second call on the same directory must resume at step 150
+    and run no step."""
+    import statistics
+    from unittest import mock
+
+    from repro_torch.hw import smi_line
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import runner
+
+    mod = load_example("train_lm")
+    cfg = mod.CFG_100M
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_example_train_")
+    argv = ["--device", "cuda", "--ckpt", tmp.name]
+    step_ev, opt_ev, save_s = [], [], []
+    real_make, real_apply, real_save = (mod.make_train_step, opt.apply_updates,
+                                        runner.ckpt.save)
+
+    def events():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        return ev
+
+    def timed_apply(*a, **kw):
+        ev = events()
+        out = real_apply(*a, **kw)
+        ev[1].record()
+        opt_ev.append(ev)
+        return out
+
+    def timed_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed_step(lm, state, batch):
+            ev = events()
+            out = step(lm, state, batch)
+            ev[1].record()
+            step_ev.append(ev)
+            return out
+        return timed_step
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        real_save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+
     try:
-        for arch, shape in DRYRUN_CELLS:
-            flags = (["--vector-search"] if shape is None
-                     else ["--arch", arch, "--shape", shape])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with mock.patch.object(mod, "make_train_step", timed_make), \
+                mock.patch.object(opt, "apply_updates", timed_apply), \
+                mock.patch.object(runner.ckpt, "save", timed_save):
+            try:
+                (lm, state, rep), lines, wall = captured(mod.main, argv)
+            except AssertionError as e:
+                require(False, f"train_lm at 100M: {e}")
+        c = launches["example_train_lm"] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in lm.parameters())
+        require(rep.steps_run == EXAMPLE_TRAIN_STEPS and lines[-1] == "OK"
+                and all(math.isfinite(x) for x in rep.losses),
+                f"train_lm at 100M: {rep.steps_run} steps, last line "
+                f"{lines[-1]!r}")
+        require(len(save_s) == 3 and sorted(os.listdir(tmp.name)) == [
+            "step_0000000100", "step_0000000150"],
+            f"train_lm at 100M: {len(save_s)} saves, kept "
+            f"{sorted(os.listdir(tmp.name))}")
+        require(not any(c.values()), f"train_lm launched {c}")
+        step_ms = [a.elapsed_time(b) for a, b in step_ev]
+        opt_ms = [a.elapsed_time(b) for a, b in opt_ev]
+        med = statistics.median(step_ms[10:])
+        med_opt = statistics.median(opt_ms[10:])
+        tokens_s = EXAMPLE_TRAIN_BATCH * EXAMPLE_TRAIN_SEQ / (med / 1e3)
+        # an f32 model with TF32 off: its products run at the FP32 peak
+        bounds = train_bounds(cfg, n_params, EXAMPLE_TRAIN_BATCH,
+                              EXAMPLE_TRAIN_SEQ, peaks, peaks[0], passes=3)
+        smi = smi_line(0)
+        print("example train_lm on the card:\n" + "\n".join(lines), flush=True)
+        print(f"train_lm {cfg.name} ({n_params} parameters, f32, no remat, "
+              f"batch {EXAMPLE_TRAIN_BATCH} x {EXAMPLE_TRAIN_SEQ}) on {smi}: "
+              f"step {med:.3f} ms (median of steps 11-{EXAMPLE_TRAIN_STEPS}, "
+              f"CUDA events; min {min(step_ms[10:]):.3f}, max "
+              f"{max(step_ms[10:]):.3f}; step 1 {step_ms[0]:.3f}), "
+              f"{tokens_s:.1f} tokens/s; AdamW {med_opt:.3f} ms, "
+              f"{med_opt / med:.3f} of a step; peak memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB); checkpoints "
+              f"{[round(x, 3) for x in save_s]} s; {wall:.3f} s in all; bound "
+              f"{bounds['bound_ms']:.3f} ms ({bounds['bound_by']}: "
+              f"{bounds['flops']:.4g} FLOP at the FP32 peak "
+              f"{bounds['ops_ms']:.3f} ms, {bounds['bytes']:.4g} bytes "
+              f"{bounds['bytes_ms']:.3f} ms), {bounds['bound_ms'] / med:.3f} "
+              f"of the step; losses {rep.losses[0]:.4f} -> "
+              f"{rep.losses[-1]:.4f}", flush=True)
+        # one more step under the profiler: the card's busy time against
+        # the wall time
+        batch = {k: torch.from_numpy(v).to(lm.device, torch.long) for k, v in
+                 mod.TokenPipeline(mod.DataConfig(
+                     vocab=cfg.vocab, seq_len=EXAMPLE_TRAIN_SEQ,
+                     global_batch=EXAMPLE_TRAIN_BATCH, seed=0)).batch(
+                         EXAMPLE_TRAIN_STEPS).items()}
+        step = real_make(lm, opt.OptimizerConfig(total_steps=EXAMPLE_TRAIN_STEPS))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
-                 "--out", tmp.name], cwd=root,
-                env=dict(os.environ, PYTHONPATH=str(root / "src")),
-                capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-            wall = time.perf_counter() - t0
-            require(proc.returncode == 0, f"dry-run {flags} exited "
-                    f"{proc.returncode}: {proc.stderr[-3000:]}")
-            tag = (f"{arch}_{shape}_32x8" if shape else "vector-search_32x8")
-            rec = json.loads(Path(tmp.name, tag + ".json").read_text())
-            peak = rec["memory"]["peak_size_in_bytes"]
-            require(rec["status"] == "ok" and peak < total,
-                    f"dry-run {tag}: status {rec['status']}, peak {peak} "
-                    f"bytes a rank of the card's {total}")
-            roof = rec["roofline"]
-            if shape is None:
-                counted = rec["cost"]["flops_per_device"] * rec["chips"]
-                analytic = roof["model_flops"]
-                coll = rec["collective_bytes"]
-            else:
-                counted = (roof["raw_cost_analysis"]["flop_counter_per_device"]
-                           * rec["chips"])
-                analytic = roof["hlo_flops_global"]
-                coll = roof["coll_breakdown"]
-            trace_s = rec.get("trace_s")
-            print(f"dry-run {tag} ({rec['chips']} fake ranks): {rec['status']}, "
-                  f"trace {trace_s} s, process {wall:.1f} s; peak "
-                  f"{peak / 2**30:.3f} GiB a rank of {total / 2**30:.1f} GiB "
-                  f"(arguments {rec['memory']['argument_size_in_bytes'] / 2**30:.3f} "
-                  f"GiB); FLOP counter x ranks {counted:.4g} vs analytic "
-                  f"{analytic:.4g} ({counted / analytic:.3f}); collectives "
-                  f"{rec['collective_counts']}, bytes a rank {coll}; roofline "
-                  f"compute {roof['compute_s']:.4g} s, memory "
-                  f"{roof['memory_s']:.4g} s, collective "
-                  f"{roof['collective_s']:.4g} s", flush=True)
-            cells[tag] = {"process_s": wall, "record": rec}
-        report["dryrun"] = cells
+            float(step(lm, state, batch)[2]["loss"])
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        profile = {"wall_us": wall_us, "device_busy_us": busy_us,
+                   "idle_share": 1 - busy_us / wall_us,
+                   "kernels": sum(e.count for e in kern)}
+        print(f"train_lm step under the profiler: wall {wall_us:.0f} us, "
+              f"device busy {busy_us:.0f} us (idle share "
+              f"{profile['idle_share']:.3f}), {profile['kernels']} kernels",
+              flush=True)
+        del lm, state, step, batch
+        torch.cuda.empty_cache()
+        (_, _, again), again_lines, again_s = captured(mod.main, argv)
+        require(again.steps_run == 0 and "resumed from step 150" in again_lines,
+                f"train_lm's second call: {again.steps_run} steps, "
+                f"{again_lines}")
+        print(f"train_lm second call on the same --ckpt, {again_s:.3f} s: "
+              f"{again_lines[1:]}", flush=True)
     finally:
         tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"card": smi, "parameters": n_params, "step_ms": step_ms,
+            "step_ms_median": med, "tokens_per_s": tokens_s,
+            "adamw_ms_median": med_opt, "peak_bytes": peak,
+            "checkpoint_s": save_s, "wall_s": wall, "resume_s": again_s,
+            "profile": profile,
+            "losses": rep.losses, "bounds": bounds, "lines": lines,
+            "launches": c}
+
+
+def examples(dev, peaks, report, launches) -> None:
+    """Step 15: the four examples in this process on the card."""
+    report["examples"] = {
+        "quickstart": example_quickstart(dev, launches),
+        "cloud_tuning": example_cloud_tuning(launches),
+        "rag_serving": example_rag(launches),
+        "train_lm": example_train(peaks, launches)}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,7 +2,9 @@
 ``embed_tokens``, greedy ``generate`` (per-step logits and tokens) and the
 driver ``python -m repro.launch.serve``'s printed text, with the
 reference's ``LM.init(PRNGKey(0))`` given to both through
-``convert.lm_params_from_reference``.
+``convert.lm_params_from_reference``; and ``launch/serve.py``'s
+retrieval recall against its exact top-k at nprobe 8, 64 and every list,
+equal in both.
 
 A generated token may differ from the reference's only at a near-tie: where
 the port's top-2 logit gap at that step is within the logit tolerance and
@@ -25,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.launch.serve as ref_serve  # noqa: E402
+from repro.core.flat import exact_topk as ref_exact_topk  # noqa: E402
 from repro.configs.archs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.configs.archs import smoke as ref_smoke  # noqa: E402
 from repro.models.embedder import embed_tokens as ref_embed_tokens  # noqa: E402
@@ -33,6 +36,8 @@ from repro.serve.decode import _grow_attention_caches as ref_grow  # noqa: E402
 from repro.serve.decode import generate as ref_generate  # noqa: E402
 from repro_torch.configs.archs import ARCHS, smoke  # noqa: E402
 from repro_torch.convert import lm_params_from_reference  # noqa: E402
+from repro_torch.core.flat import exact_topk  # noqa: E402
+from repro_torch.core.types import SearchParams  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models.embedder import embed_tokens  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
@@ -203,6 +208,66 @@ def test_serve_driver_prints_the_reference_text(arch, monkeypatch):
                 (1, port.cfg.n_frontend_tokens, port.cfg.d_model))
         logits = [lg[0].numpy() for lg, _ in decode_steps(port, pb, 8)]
         _assert_tokens_agree([toks], [want_toks], lambda row, s: logits[s])
+
+
+def _recalls(index, docs, qv, run_workload, search_params, exact, nprobes):
+    """recall@4 of ``launch/serve.py``'s retrieval against the exact
+    top-4, at each of ``nprobes`` (``None``: every list)."""
+    gt, _ = exact(docs, qv, 4)
+    out = {}
+    for nprobe in nprobes:
+        n = index.meta.n_lists if nprobe is None else nprobe
+        rep = run_workload(index, qv, search_params(k=4, nprobe=n),
+                           ref_serve.TOS, concurrency=len(qv))
+        out[nprobe] = rep.recall_against(gt)
+    return out
+
+
+def test_rag_recall_matches_the_reference_at_every_nprobe(monkeypatch):
+    """``launch/serve.py``'s index over 1,024 documents and 64 requests, on
+    the reference's weights: the same list count, and recall@4 against
+    each package's exact top-4 equal at nprobe 8 (serve's), 64 and
+    every list, where it is 1.0 (generation is stubbed: only retrieval is
+    under test)."""
+    argv = ["--corpus", "1024", "--requests", "64", "--tokens", "1"]
+    nprobes = (8, 64, None)
+    seen = {}
+
+    want_run, want_build = ref_serve.run_workload, ref_serve.ClusterIndex.build
+
+    def build(docs, params):
+        seen["docs"] = docs
+        return want_build(docs, params)
+
+    def capture(index, qv, params, storage, concurrency):
+        seen.update(index=index, qv=qv)
+        return want_run(index, qv, params, storage, concurrency=concurrency)
+
+    monkeypatch.setattr(ref_serve.ClusterIndex, "build", staticmethod(build))
+    monkeypatch.setattr(ref_serve, "run_workload", capture)
+    monkeypatch.setattr(ref_serve, "generate",
+                        lambda lm, params, b, n_tokens: np.zeros((1, 1), int))
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref_serve.main()
+    from repro.core.types import SearchParams as RefSearchParams
+    want_lists = seen["index"].meta.n_lists
+    want = _recalls(seen["index"], seen["docs"], seen["qv"], want_run,
+                    RefSearchParams, ref_exact_topk, nprobes)
+
+    _, _, port = _models("gemma-2b")
+    monkeypatch.setattr(port_serve, "generate",
+                        lambda lm, b, n_tokens: np.zeros((1, 1), int))
+    args = port_serve.build_parser().parse_args(argv + ["--device", "cpu"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = port_serve.serve(port.cfg, port.state_dict(), args, "cpu")
+    got = _recalls(run.index, run.vecs, run.qv, port_serve.run_workload,
+                   SearchParams,
+                   lambda x, q, k: exact_topk(x, q, k, device="cpu"), nprobes)
+    assert run.index.meta.n_lists == want_lists
+    assert got == want, (got, want)
+    print(f"recall@4 at nprobe 8 / 64 / all {want_lists} lists: {got}")
+    assert got[None] == 1.0 and got[8] <= got[64] <= got[None]
 
 
 def test_serve_cli_runs_on_the_cpu():

@@ -1,5 +1,6 @@
-"""Rules of the port as a whole: it imports neither JAX nor ``repro``, and
-its entry points refuse to run on the CPU unless asked to."""
+"""Rules of the port as a whole: it (its examples included) imports neither
+JAX nor ``repro``, and its entry points refuse to run on the CPU unless
+asked to."""
 import re
 import subprocess
 import sys
@@ -22,8 +23,8 @@ from repro_torch.fleet.__main__ import main as fleet_main  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)"
     r"|import\s+.*\b(jax|repro)\b(?!_))", re.M)
