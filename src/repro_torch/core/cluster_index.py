@@ -27,6 +27,7 @@ from typing import Generator
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import kmeans as km
 from repro_torch.core.distances import np_sq_l2, pairwise_sq_l2, topk_smallest
 from repro_torch.core.types import (ClusterIndexParams, FetchBatch,
@@ -158,45 +159,47 @@ class ClusterIndex:
         n, dim = data.shape
         n_leaves = max(1, int(round(params.centroid_frac * n)))
         data32 = data.astype(np.float32)
-        tree, _ = km.hierarchical_partition(
-            data32, n_leaves, branch=params.branch,
-            iters=params.kmeans_iters,
-            balance_penalty=max(params.balance_penalty, 1.0),
-            seed=params.seed)
-        cents = torch.from_numpy(tree.centroids).to(dev)
-        points = torch.from_numpy(data32).to(dev)
-        n_lists = len(tree.centroids)
-        r = min(params.num_replica, n_lists)
+        with spans.span("repro_torch.build.bkt"):
+            tree, _ = km.hierarchical_partition(
+                data32, n_leaves, branch=params.branch,
+                iters=params.kmeans_iters,
+                balance_penalty=max(params.balance_penalty, 1.0),
+                seed=params.seed)
+        with spans.span("repro_torch.build.closure"):
+            cents = torch.from_numpy(tree.centroids).to(dev)
+            points = torch.from_numpy(data32).to(dev)
+            n_lists = len(tree.centroids)
+            r = min(params.num_replica, n_lists)
 
-        # closure replication: top-r centroids per point from the fused
-        # kernel, keep those within (1+eps) of the nearest (squared
-        # distances -> (1+eps)^2).
-        thresh = (1.0 + params.closure_eps) ** 2
-        pair_list: list[np.ndarray] = []
-        pair_point: list[np.ndarray] = []
-        for s in range(0, n, chunk):
-            dd, idx = ops.l2_topk(points[s:s + chunk], cents, r)
-            lists, pts = closure_pairs(dd.cpu().numpy(), idx.cpu().numpy(),
-                                       thresh, s)
-            pair_list.append(lists)
-            pair_point.append(pts)
-        lists_flat = np.concatenate(pair_list)
-        points_flat = np.concatenate(pair_point)
-        order = np.argsort(lists_flat, kind="stable")
-        lists_flat, points_flat = lists_flat[order], points_flat[order]
-        starts = np.searchsorted(lists_flat, np.arange(n_lists))
-        ends = np.searchsorted(lists_flat, np.arange(n_lists) + 1)
+            # closure replication: top-r centroids per point from the fused
+            # kernel, keep those within (1+eps) of the nearest (squared
+            # distances -> (1+eps)^2).
+            thresh = (1.0 + params.closure_eps) ** 2
+            pair_list: list[np.ndarray] = []
+            pair_point: list[np.ndarray] = []
+            for s in range(0, n, chunk):
+                dd, idx = ops.l2_topk(points[s:s + chunk], cents, r)
+                lists, pts = closure_pairs(dd.cpu().numpy(), idx.cpu().numpy(),
+                                           thresh, s)
+                pair_list.append(lists)
+                pair_point.append(pts)
+            lists_flat = np.concatenate(pair_list)
+            points_flat = np.concatenate(pair_point)
+            order = np.argsort(lists_flat, kind="stable")
+            lists_flat, points_flat = lists_flat[order], points_flat[order]
+            starts = np.searchsorted(lists_flat, np.arange(n_lists))
+            ends = np.searchsorted(lists_flat, np.arange(n_lists) + 1)
 
-        itemsize = data.dtype.itemsize
-        lengths = (ends - starts).astype(np.int32)
-        # billable size: raw vectors + 8-byte ids (paper's posting lists
-        # store full vectors inline)
-        nbytes = lengths.astype(np.int64) * (dim * itemsize + 8)
-        for li in range(n_lists):
-            ids_arr = points_flat[starts[li]:ends[li]]
-            vecs = data[ids_arr] if len(ids_arr) else np.zeros(
-                (0, dim), data.dtype)
-            store.put(("list", li), (ids_arr, vecs), int(max(nbytes[li], 1)))
+            itemsize = data.dtype.itemsize
+            lengths = (ends - starts).astype(np.int32)
+            # billable size: raw vectors + 8-byte ids (paper's posting lists
+            # store full vectors inline)
+            nbytes = lengths.astype(np.int64) * (dim * itemsize + 8)
+            for li in range(n_lists):
+                ids_arr = points_flat[starts[li]:ends[li]]
+                vecs = data[ids_arr] if len(ids_arr) else np.zeros(
+                    (0, dim), data.dtype)
+                store.put(("list", li), (ids_arr, vecs), int(max(nbytes[li], 1)))
 
         meta = ClusterIndexMeta(
             tree=tree, list_lengths=lengths, list_nbytes=nbytes,
@@ -254,14 +257,15 @@ class ClusterIndex:
         L = self.meta.n_lists
         dim = self.meta.dim
         ml = int(max_len or self.meta.list_lengths.max())
-        vecs = np.zeros((L, ml, dim), dtype=np.float32)
-        ids = np.full((L, ml), -1, dtype=np.int32)
-        for li in range(L):
-            pids, pv = self.store.get(("list", li))
-            cnt = min(len(pids), ml)
-            if cnt:
-                vecs[li, :cnt] = pv[:cnt].astype(np.float32)
-                ids[li, :cnt] = pids[:cnt]
+        with spans.span("repro_torch.build.device_arrays"):
+            vecs = np.zeros((L, ml, dim), dtype=np.float32)
+            ids = np.full((L, ml), -1, dtype=np.int32)
+            for li in range(L):
+                pids, pv = self.store.get(("list", li))
+                cnt = min(len(pids), ml)
+                if cnt:
+                    vecs[li, :cnt] = pv[:cnt].astype(np.float32)
+                    ids[li, :cnt] = pids[:cnt]
         return dict(
             centroids=self.meta.tree.centroids.astype(np.float32),
             list_vecs=vecs, list_ids=ids,
@@ -283,30 +287,53 @@ def device_search_batch(
     step for step, with "fetch" an HBM gather.  The scan is plain batched
     tensor code in full f32, as the reference's is XLA outside any kernel.
     Returns ``(ids (B, k) int32, dists (B, k) f32)``.
+
+    Each stage runs in a span of :mod:`repro_torch.spans`
+    (``repro_torch.search.{probe,select,gather,scan,merge}`` inside
+    ``repro_torch.search``); while the recorder is on, a last span,
+    ``repro_torch.search.count``, counts the queries, the padded rows the
+    gather reads and those that hold an entry, and the answers with fewer
+    than ``k`` results.
     """
     B, D = queries.shape
-    cd = pairwise_sq_l2(queries, centroids)              # (B, L)
-    _, probe = topk_smallest(cd, nprobe)                 # (B, nprobe)
-    vecs = list_vecs[probe].reshape(B, -1, D)            # (B, np*ml, D)
-    ids = list_ids[probe].reshape(B, -1)                 # (B, np*ml)
-    # per query: |q|^2 + |x|^2 - 2 q.x, clamped (pairwise_sq_l2's formula)
-    qf = queries.float()
-    qn = (qf * qf).sum(-1)[:, None]
-    xn = (vecs * vecs).sum(-1)
-    with full_f32_matmul():
-        ip = torch.bmm(vecs, qf[:, :, None])[..., 0]
-    d = torch.clamp_min(qn + xn - 2.0 * ip, 0.0)
-    d = torch.where(ids < 0, torch.inf, d)
-    # dedup replicas: a duplicated id appears with identical distance;
-    # sort by distance and mask repeated ids within the top window.
-    dd, ii = topk_smallest(d, min(4 * k, d.shape[-1]))
-    cand_ids = torch.gather(ids, 1, ii)                  # (B, 4k)
-    same = cand_ids[:, :, None] == cand_ids[:, None, :]
-    w = cand_ids.shape[1]
-    earlier = torch.ones((w, w), dtype=torch.bool,
-                         device=ids.device).tril(-1)[None]
-    dup = torch.any(same & earlier, dim=-1)
-    dd = torch.where(dup, torch.inf, dd)
-    vals, sel = topk_smallest(dd, k)
-    out_ids = torch.gather(cand_ids, 1, sel)
+    with spans.span("repro_torch.search",
+                    batch=spans.next_batch("search.batches")):
+        with spans.span("repro_torch.search.probe"):
+            cd = pairwise_sq_l2(queries, centroids)          # (B, L)
+        with spans.span("repro_torch.search.select"):
+            _, probe = topk_smallest(cd, nprobe)             # (B, nprobe)
+        with spans.span("repro_torch.search.gather"):
+            vecs = list_vecs[probe].reshape(B, -1, D)        # (B, np*ml, D)
+            ids = list_ids[probe].reshape(B, -1)             # (B, np*ml)
+        with spans.span("repro_torch.search.scan"):
+            # per query: |q|^2 + |x|^2 - 2 q.x, clamped (pairwise_sq_l2's
+            # formula)
+            qf = queries.float()
+            qn = (qf * qf).sum(-1)[:, None]
+            xn = (vecs * vecs).sum(-1)
+            with full_f32_matmul():
+                ip = torch.bmm(vecs, qf[:, :, None])[..., 0]
+            d = torch.clamp_min(qn + xn - 2.0 * ip, 0.0)
+            d = torch.where(ids < 0, torch.inf, d)
+        with spans.span("repro_torch.search.merge"):
+            # dedup replicas: a duplicated id appears with identical
+            # distance; sort by distance and mask repeated ids within the
+            # top window.
+            dd, ii = topk_smallest(d, min(4 * k, d.shape[-1]))
+            cand_ids = torch.gather(ids, 1, ii)              # (B, 4k)
+            same = cand_ids[:, :, None] == cand_ids[:, None, :]
+            w = cand_ids.shape[1]
+            earlier = torch.ones((w, w), dtype=torch.bool,
+                                 device=ids.device).tril(-1)[None]
+            dup = torch.any(same & earlier, dim=-1)
+            dd = torch.where(dup, torch.inf, dd)
+            vals, sel = topk_smallest(dd, k)
+            out_ids = torch.gather(cand_ids, 1, sel)
+        if spans.enabled():
+            with spans.span("repro_torch.search.count"):
+                spans.count("search.queries", B)
+                spans.count("search.rows_gathered", ids.numel())
+                spans.count("search.rows_filled", (ids >= 0).sum())
+                spans.count("search.short_answers",
+                            torch.isinf(vals).any(-1).sum())
     return out_ids, vals
