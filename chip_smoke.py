@@ -14,18 +14,24 @@ and the LM serving and training paths:
 * the four examples of ``examples/torch/`` as a user runs them, the 100M
   trainer at its full width.
 
-1. build the three CUDA kernels from this checkout's sources (one nvcc
+1. build the four CUDA kernels from this checkout's sources (one nvcc
    each, all started together);
 2. cluster path: host BKT (numpy), closure replication through the fused
    ``l2_topk`` kernel, ``device_arrays`` on the card; ground truth with
    ``exact_topk`` (``l2_topk``), k=10; ``device_search_batch`` at nprobe 16
-   and 64 in batches of 512 (the centroid probe runs ``l2_distance``):
-   recall@10 and queries/s;
+   and 64 in batches of 512 (the centroid probe runs ``l2_distance``, its
+   select and the merge's two top-k ``topk_select``, three launches a
+   batch): recall@10 and queries/s; ``topk_select`` held to the plain
+   stable sort, bit for bit, on the rows each of a batch's three top-k
+   took at both nprobes, and on the benchmark cell's three shapes, each
+   timed with its device time in L2 and with L2 flushed, against the
+   bytes bound;
 2b. ``core/distributed.py`` on one NCCL rank (a ``file://`` store): the
    sharded search step over the whole index (512 queries, nprobe_local 16,
    k=10; its probe runs ``l2_distance``) and a sharded k-means step (100,000
    points, 1,024 centroids), each held against the same step on the CPU
-   through a ``gloo`` group, with the step's time and launches; one more
+   through a ``gloo`` group, with the step's time and launches (the search
+   step's probe, local top-k and merge: three ``topk_select``); one more
    search step under the profiler, whose trace
    ``launch/roofline.py``'s parser must read as its two all-gathers of
    512 x 10 x (4 + 4) bytes;
@@ -117,7 +123,7 @@ and the LM serving and training paths:
    smoke config 30 steps with a falling loss, and a SIGTERM preemption
    whose resume ends on the uninterrupted run's parameters; ``python -m
    repro_torch.launch.train --smoke --steps 3`` on the card runs in step
-   14b.  The training path launches none of the three kernels;
+   14b.  The training path launches none of the kernels;
 14a. the smoke config trained 3 steps through the DTensor path
    (``models/parallel.py``) on an explicit 1x1 mesh over one NCCL rank,
    whose losses must equal the plain path's within 1e-6 relative;
@@ -139,7 +145,8 @@ and the LM serving and training paths:
    same directory, which must resume at step 150 and run no step.
 
 Launch counts are zeroed just before each main-path phase and read just
-after it; the comparisons in step 4 and the calibration are not counted.
+after it; the comparisons of steps 2 and 4 and the calibration are not
+counted.
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 exits nonzero before that line; so does a machine without CUDA, or a
@@ -277,9 +284,10 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def _kernels() -> dict:
-    from repro_torch.kernels import distance, fused_topk, pq_adc
+    from repro_torch.kernels import distance, fused_topk, pq_adc, topk_select
     return {"l2_distance": distance.l2_distance, "l2_topk": fused_topk.l2_topk,
-            "adc_lookup": pq_adc.adc_lookup}
+            "adc_lookup": pq_adc.adc_lookup,
+            "topk_select": topk_select.topk_smallest}
 
 
 def reset() -> None:
@@ -409,6 +417,118 @@ def topk_case(label: str, q: torch.Tensor, x: torch.Tensor, k: int, peaks,
     return out
 
 
+#: the benchmark cell's three top-k a batch (``random-s-100.b500.np16``: 500
+#: queries, ~19.7k lists of up to 44 entries): the probe's select, the
+#: merge's top-40 window over 16 lists' padded slots, the final top-10
+BENCH_TOPK = {"select": (500, 19_700, 16), "window": (500, 704, 40),
+              "final": (500, 40, 10)}
+FLUSH_BYTES = 256 << 20          # five times the H100's 50 MB L2
+
+
+def captured_topk(search) -> list:
+    """``(stage, rows, k)`` of each top-k that one call of ``search`` makes
+    in ``device_search_batch`` (the probe's select, the merge's window and
+    final top-k), the rows copied as they were."""
+    from repro_torch.core import cluster_index
+    calls, orig = [], cluster_index.topk_smallest
+
+    def keep(d, k):
+        calls.append((d.clone(), k))
+        return orig(d, k)
+    cluster_index.topk_smallest = keep
+    try:
+        search()
+    finally:
+        cluster_index.topk_smallest = orig
+    require(len(calls) == 3, f"a search batch made {len(calls)} top-k calls, not 3")
+    return [(stage, d, k) for stage, (d, k) in zip(BENCH_TOPK, calls)]
+
+
+def bench_topk_rows(stage: str, R: int, N: int, g) -> torch.Tensor:
+    """Rows like the benchmark cell's at a stage: the probe's distances,
+    a few near centroids among far ones; the window's, three quarters
+    ``inf`` padding; the final top-10's, finite."""
+    d = 300 * torch.rand((R, N), device="cuda", generator=g)
+    if stage == "select":
+        far = 2800 + 1700 * torch.rand((R, N), device="cuda", generator=g)
+        near = torch.rand((R, N), device="cuda", generator=g) < 20 / N
+        return torch.where(near, 50 + d / 3, far)
+    if stage == "window":
+        pad = torch.rand((R, N), device="cuda", generator=g) < 0.75
+        return torch.where(pad, torch.inf, d)
+    return d
+
+
+def select_case(label: str, d: torch.Tensor, k: int, peaks, flush) -> dict:
+    """``topk_select`` against the plain stable sort on one matrix: the same
+    bits, values and indices; a call's time in a loop; the kernel's device
+    time (profiler) with the matrix in L2, as the search reads it just
+    after writing it, and with L2 flushed before each call; the bound, the
+    matrix read once and the result written once at HBM's rate, to which
+    only the flushed time is held."""
+    from repro_torch.kernels import ops, topk_select
+    from repro_torch.kernels.ref import stable_topk_smallest
+
+    R, N = d.shape
+    shape = f"{R}x{N} k={k} ({label})"
+    gv, gi = ops.topk_smallest(d, k)
+    wv, wi = stable_topk_smallest(d, k)
+    require(torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32)),
+            f"topk_select at {shape}: not the stable sort's bits")
+    p = topk_select.plan(N, k)
+    staged = p.cap < N <= topk_select.max_staged(N, k, d.device.index)
+    match = lambda key: "topk_select_kernel" in key  # noqa: E731
+
+    def cold():
+        flush.zero_()
+        ops.topk_smallest(d, k)
+    b_ms = (4 * R * N + 12 * R * k) / peaks[1] * 1e3
+    out = {"shape": shape, "infs": int(torch.isinf(d).sum()),
+           "plan": (f"{p.threads} threads, {p.digit_bits}-bit digits, {p.cap} "
+                    f"candidates, {'staged' if staged else 'read from memory'}"),
+           "ms": time_ms(lambda: ops.topk_smallest(d, k), 20),
+           "plain_ms": time_ms(lambda: stable_topk_smallest(d, k), 20),
+           "device_ms": kernel_device_ms(lambda: ops.topk_smallest(d, k), match)[0],
+           "cold_device_ms": kernel_device_ms(cold, match)[0],
+           "bound_ms": b_ms, "bound_by": "bytes"}
+    require(out["device_ms"] is not None and out["cold_device_ms"] is not None,
+            f"topk_select at {shape}: the profiler recorded no topk_select_kernel")
+    out["bound_share"] = b_ms / out["cold_device_ms"]
+    print(f"topk_select {shape} ({out['plan']}): a loop call {out['ms']:.4f} ms, "
+          f"device {out['device_ms']:.4f} ms in L2, {out['cold_device_ms']:.4f} ms "
+          f"flushed, bound {b_ms:.6f} ms (bytes at HBM's rate), "
+          f"{out['bound_share']:.3f} of it flushed; stable sort {out['plain_ms']:.4f} "
+          f"ms; the same bits", flush=True)
+    return out
+
+
+def topk_select_check(captured: dict, dev, peaks) -> dict:
+    """The ``kernels`` entry of ``topk_select``: :func:`select_case` on each
+    top-k of a search batch at each nprobe (``captured``: nprobe -> the
+    three calls) and at :data:`BENCH_TOPK`'s shapes."""
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    cases = [select_case(f"{stage}, nprobe {nprobe}", d, k, peaks, flush)
+             for nprobe, calls in captured.items() for stage, d, k in calls]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases += [select_case(f"{stage}, benchmark cell", bench_topk_rows(stage, R, N, g),
+                        k, peaks, flush)
+              for stage, (R, N, k) in BENCH_TOPK.items()]
+    del flush, captured
+    torch.cuda.empty_cache()
+    main = cases[0]
+    return {"name": "topk_select", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_select.cu",
+            "replaces": "none (the reference's top-k is jax.lax.top_k, XLA's)",
+            "shape": main["shape"], "plan": main["plan"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "device_ms": main["device_ms"],
+            "cold_device_ms": main["cold_device_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "bound_share": main["bound_share"],
+            "library": "none: torch.topk's tie order is unspecified",
+            "cases": cases,
+            "checked": "values and int64 indices the plain stable sort's bits "
+                       "at every shape"}
+
+
 def norm_tol(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     qf, xf = q.float(), x.float()
     return TOL * ((qf * qf).sum(-1)[:, None] + (xf * xf).sum(-1)[None, :]) + 1e-6
@@ -530,7 +650,7 @@ def main(argv=None) -> int:
                                    dv["list_ids"], qt[lo:hi],
                                    nprobe=nprobe, k=K)
 
-    search(NPROBES[0], 0, BATCH)             # warm-up: cuBLAS and sort set-up
+    search(NPROBES[0], 0, BATCH)             # warm-up: cuBLAS set-up
     report["search"] = {}
     for nprobe in NPROBES:
         reset()
@@ -545,8 +665,10 @@ def main(argv=None) -> int:
         dists = torch.cat([o[1] for o in outs]).cpu().numpy()
         rec = float(np.mean([recall_at_k(ids[i], gt[i])
                              for i in range(args.queries)]))
-        require(launches[f"search_nprobe{nprobe}"]["l2_distance"]
-                == math.ceil(args.queries / BATCH), f"search launched {counts()}")
+        n_batches = math.ceil(args.queries / BATCH)
+        require(launches[f"search_nprobe{nprobe}"]["l2_distance"] == n_batches
+                and launches[f"search_nprobe{nprobe}"]["topk_select"] == 3 * n_batches,
+                f"search launched {counts()}")
         require(ids.shape == (args.queries, K) and ((ids >= -1) & (ids < args.n)).all(),
                 "search ids out of range")
         valid = ids >= 0
@@ -586,6 +708,13 @@ def main(argv=None) -> int:
               f"{1 - busy_us / wall_us:.3f}); top kernels (us): {top}")
     t = phase("profile one search batch per nprobe", t)
 
+    # the selection kernel on the rows a search batch gave it, and at the
+    # benchmark cell's shapes
+    kernels = [topk_select_check(
+        {nprobe: captured_topk(lambda: search(nprobe, 0, BATCH)) for nprobe in NPROBES},
+        dev, peaks)]
+    t = phase("check topk_select", t)
+
     # the card's answers against the plain path on the CPU, same arrays
     cpu_ids, _ = device_search_batch(
         *(torch.from_numpy(arrs[key]) for key in ("centroids", "list_vecs",
@@ -609,7 +738,6 @@ def main(argv=None) -> int:
         args, dev, report, launches, t)
 
     # ---- 4. kernels against their plain versions, main-path shapes ----
-    kernels = []
     cents = dv["centroids"]
     del dv["list_vecs"]
     torch.cuda.empty_cache()
@@ -1787,7 +1915,8 @@ def sharded(dev, data, queries, arrs, dv, report, launches) -> None:
         got_ids, got_d = step(cents, vecs, ids, norms, q)
         torch.cuda.synchronize()
         c = launches["sharded_search"] = counts()
-        require(c["l2_distance"] == 1, f"the sharded search step launched {c}")
+        require(c["l2_distance"] == 1 and c["topk_select"] == 3,
+                f"the sharded search step launched {c}")
         ms = time_ms(lambda: step(cents, vecs, ids, norms, q), 10)
         cpu = [torch.from_numpy(arrs[key]) for key in
                ("centroids", "list_vecs", "list_ids")]
@@ -1812,7 +1941,8 @@ def sharded(dev, data, queries, arrs, dv, report, launches) -> None:
         print(f"sharded search step, 1 NCCL rank, {len(q)} queries x "
               f"{cents.shape[0]} lists (max {vecs.shape[1]}), nprobe_local "
               f"{SHARD_NPROBE}, k={K}: {ms:.4f} ms a step (CUDA events), "
-              f"l2_distance launches {c['l2_distance']}; against the CPU (gloo): "
+              f"l2_distance launches {c['l2_distance']}, topk_select "
+              f"{c['topk_select']}; against the CPU (gloo): "
               f"{len(probe_rows)} rows probed other lists at a near-tie, "
               f"{n_diff} rows differ otherwise, all near-ties; max abs err "
               f"{float(err.max()):.3g}")

@@ -5,9 +5,10 @@ Counterpart of ``repro.core.distances``.  ``pairwise_sq_l2`` goes through
 for a CUDA tensor, its plain PyTorch version for a CPU tensor.  Products
 elsewhere run in full float32 (no TF32), as the reference's f32 path does.
 
-``topk_smallest`` puts the lower index first on ties, as ``jax.lax.top_k``
-does in the reference (a stable sort; ``torch.topk``'s tie order is
-unspecified).
+``topk_smallest`` is :func:`repro_torch.kernels.ops.topk_smallest`: the
+hand-written selection kernel for a CUDA tensor, the plain stable sort for a
+CPU tensor.  It puts the lower index first on ties, as ``jax.lax.top_k``
+does in the reference (``torch.topk``'s tie order is unspecified).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import full_f32_matmul
-from repro_torch.kernels.ref import stable_topk_smallest as topk_smallest
+
+topk_smallest = ops.topk_smallest
 
 
 def pairwise_sq_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -8,13 +8,14 @@ raises.  There is no fallback: a kernel that fails on the card raises.
 Pallas interpreter and Mosaic.)
 
 Each kernel is a ``torch.library`` custom op (``repro_torch::l2_distance``,
-``repro_torch::l2_topk``, ``repro_torch::adc_lookup``) with a fake
-implementation that gives only the output's shape and dtype, and a FLOP
-formula for ``FlopCounterMode``.  So a fake tensor (``FakeTensorMode``, the
-dry-run's) gets its shapes and is never computed on, and never reaches a
-kernel launch.  A plain tensor outside any dispatch mode takes the same
-implementation without the dispatcher's round trip (a graph search makes
-one call a round).
+``repro_torch::l2_topk``, ``repro_torch::adc_lookup``,
+``repro_torch::topk_smallest``) with a fake implementation that gives only
+the output's shape and dtype, and, for the three distance kernels, a FLOP
+formula for ``FlopCounterMode`` (a selection is no floating-point product).
+So a fake tensor (``FakeTensorMode``, the dry-run's) gets its shapes and
+is never computed on, and never reaches a kernel launch.  A plain tensor
+outside any dispatch mode takes the same implementation without the
+dispatcher's round trip (a graph search makes one call a round).
 
 The ``block_*`` keywords of the Pallas kernels are accepted and ignored:
 the CUDA kernels have fixed tiles, and in the reference the tile shape
@@ -29,6 +30,7 @@ from torch.utils.flop_counter import flop_registry, register_flop_formula
 from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import fused_topk as _fused_topk
 from repro_torch.kernels import pq_adc as _pq_adc
+from repro_torch.kernels import topk_select as _topk_select
 from repro_torch.kernels import ref as ref  # re-export the plain versions
 
 _BLOCK_KW = {"block_q", "block_n", "block_d"}
@@ -96,6 +98,25 @@ def _(codes, table):
     return table.new_empty((codes.shape[0],), dtype=torch.float32)
 
 
+def _topk_smallest_impl(d: torch.Tensor, k: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _route("topk_smallest", d, kw={}) == "cuda":
+        return _topk_select.topk_smallest(d, k)
+    return ref.stable_topk_smallest(d, k)
+
+
+_topk_smallest_op = torch.library.custom_op(
+    "repro_torch::topk_smallest", _topk_smallest_impl, mutates_args=())
+
+
+@_topk_smallest_op.register_fake
+def _(d, k):
+    # the plain version's shapes: it keeps d's dtype (float32 on the card)
+    # and gives min(k, N) columns on the CPU
+    shape = (*d.shape[:-1], min(k, d.shape[-1]))
+    return d.new_empty(shape), d.new_empty(shape, dtype=torch.int64)
+
+
 def _distance_flops(q_shape, x_shape, *args, out_shape=None, **kw) -> int:
     """2·Q·N·D: one multiply and one add per (query, row, dim); the norms
     and the combination are O(Q·N + (Q + N)·D) and not counted, as a
@@ -151,3 +172,17 @@ def adc_lookup(codes: torch.Tensor, table: torch.Tensor, **kw) -> torch.Tensor:
     if _eager(codes, table):
         return _adc_lookup_impl(codes, table)
     return torch.ops.repro_torch.adc_lookup(codes, table)
+
+
+def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest along the last axis, ascending, lower index first
+    on ties: ``(values, indices int64)``.  A CUDA tensor (float32, ``1 <= k
+    <= min(N, 1024)``) goes to the selection kernel, a CPU tensor to
+    :func:`repro_torch.kernels.ref.stable_topk_smallest`."""
+    if _eager(d):
+        if d.is_cuda:               # the search's path: three calls a batch
+            return _topk_select.topk_smallest(d, k)
+        return _topk_smallest_impl(d, k)
+    if _route("topk_smallest", d, kw={}) == "cuda":
+        _topk_select.check(d, k)
+    return torch.ops.repro_torch.topk_smallest(d, k)

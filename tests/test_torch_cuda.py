@@ -10,9 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, distance, fused_topk, ops, pq_adc  # noqa: E402
+from repro_torch.kernels import (_build, distance, fused_topk, ops,  # noqa: E402
+                                 pq_adc, topk_select)
 from repro_torch.kernels.ref import (adc_lookup_ref, l2_distance_ref,  # noqa: E402
-                                     l2_topk_ref)
+                                     l2_topk_ref, stable_topk_smallest)
 
 pytestmark = pytest.mark.cuda
 
@@ -255,6 +256,120 @@ def test_kernel_wrappers_reject_what_they_cannot_take(dev):
         ops.l2_distance(qs, xs.cpu())
     with pytest.raises(TypeError):
         distance.l2_distance(qs, xs.double())
+
+
+# ------------------------------------------------------- top-k selection --
+
+def _rows(r, n, kind, seed=0):
+    """(r, n) float32 rows of one kind, made with numpy."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return rng.normal(size=(r, n)).astype(np.float32)
+    if kind == "ties":                      # small integers: ties everywhere
+        return rng.integers(0, 5, size=(r, n)).astype(np.float32)
+    if kind == "inf_part":                  # the merge's padded entries
+        d = (rng.normal(size=(r, n)) ** 2 * 100).astype(np.float32)
+        d[rng.random((r, n)) < 0.75] = np.inf
+        return d
+    if kind == "inf_all":
+        return np.full((r, n), np.inf, np.float32)
+    if kind == "bimodal":                   # the probe: a few near centroids
+        d = rng.uniform(2800, 4500, size=(r, n))
+        near = rng.random((r, n)) < 20 / n
+        d[near] = rng.uniform(50, 150, size=int(near.sum()))
+        return d.astype(np.float32)
+    if kind == "zeros":                     # signed zeros and infinities
+        return rng.choice(np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf],
+                                   np.float32), size=(r, n))
+    raise ValueError(kind)
+
+
+def _same_as_the_sort(d, k):
+    """ops.topk_smallest on the card, in one launch, gives the stable
+    sort's values (to the bit) and indices."""
+    before = topk_select.topk_smallest.launches
+    vals, idx = ops.topk_smallest(d, k)
+    torch.cuda.synchronize()
+    assert topk_select.topk_smallest.launches == before + 1
+    want_v, want_i = stable_topk_smallest(d, k)
+    assert vals.shape == want_v.shape == (*d.shape[:-1], k)
+    assert (vals.dtype, idx.dtype) == (torch.float32, torch.int64)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "inf_part", "inf_all",
+                                  "bimodal", "zeros"])
+@pytest.mark.parametrize("r,n,k", [(500, 19700, 16), (500, 640, 40), (500, 40, 10),
+                                   (64, 1000, 1), (8, 5000, 256), (4, 1024, 1024),
+                                   (16, 300, 300), (3, 1, 1), (7, 33, 33),
+                                   (32, 2048, 40), (2, 100_000, 10)])
+def test_topk_select_matches_the_stable_sort(dev, r, n, k, kind):
+    _same_as_the_sort(torch.from_numpy(_rows(r, n, kind, seed=r + n + k)).to(dev), k)
+
+
+@pytest.mark.parametrize("n", [8, 40, 129, 640, 4097, 19700])
+def test_topk_select_orders_signed_zeros_and_nans_as_the_sort(dev, n):
+    rng = np.random.default_rng(n)
+    bits = np.array([0x00000000, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7F800001,
+                     0xFFFFFFFF, 0x7F800000, 0xFF800000, 0x3F800000, 0xBF800000],
+                    np.uint32)
+    d = rng.choice(bits, size=(6, n)).view(np.float32)
+    d[:, : n // 2] = rng.integers(-2, 3, size=(6, n // 2))
+    rng.permuted(d, axis=1, out=d)
+    d = torch.from_numpy(d).to(dev)
+    for k in sorted({1, min(n, 10), min(n, 40), min(n, topk_select.K_MAX)}):
+        _same_as_the_sort(d, k)
+
+
+@pytest.mark.parametrize("k", [16, 1024])
+@pytest.mark.parametrize("off", [-1, 0, 1])
+def test_topk_select_around_the_shared_memory_threshold(dev, k, off):
+    n = topk_select.max_staged(10 ** 6, k, torch.cuda.current_device()) + off
+    assert 50_000 < n < 60_000
+    for kind in ("normal", "ties"):
+        _same_as_the_sort(torch.from_numpy(_rows(3, n, kind, seed=k + off)).to(dev), k)
+
+
+def test_topk_select_leading_axes_and_strided_input(dev):
+    base = torch.from_numpy(_rows(3 * 4 * 60, 700, "ties", seed=3)).to(dev)
+    _same_as_the_sort(base.reshape(3, 4, 60, 700), 40)
+    _same_as_the_sort(base[:, ::2], 16)                     # strided rows
+    _same_as_the_sort(base.reshape(3, 4, 60, 700).transpose(-1, -2), 10)
+    _same_as_the_sort(base[5], 7)                           # one axis
+    vals, idx = ops.topk_smallest(base[:0], 3)               # no rows: no launch
+    assert vals.shape == idx.shape == (0, 3)
+
+
+def test_topk_select_calls_neither_sort_nor_topk(dev, monkeypatch):
+    d = torch.from_numpy(_rows(50, 3000, "normal")).to(dev)
+    want = stable_topk_smallest(d, 16)
+
+    def boom(*a, **kw):
+        raise AssertionError("the card's top-k went through a sort")
+    for name in ("sort", "topk", "argsort"):
+        monkeypatch.setattr(torch, name, boom)
+        monkeypatch.setattr(torch.Tensor, name, boom)
+    from repro_torch.core.distances import topk_smallest
+    got = topk_smallest(d, 16)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_topk_select_rejects_what_it_cannot_take(dev):
+    d = torch.from_numpy(_rows(4, 10, "normal")).to(dev)
+    with pytest.raises(ValueError):
+        ops.topk_smallest(d, 11)                               # k > N
+    with pytest.raises(ValueError):
+        ops.topk_smallest(torch.zeros(2, 2000, device=dev), topk_select.K_MAX + 1)
+    with pytest.raises(ValueError):
+        ops.topk_smallest(d, 0)
+    for dtype in (torch.float64, torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(TypeError):
+            ops.topk_smallest(d.to(dtype), 3)
+    with pytest.raises(ValueError):
+        topk_select.topk_smallest(d.cpu(), 3)
+    with pytest.raises(ValueError):
+        ops.topk_smallest(torch.tensor(1.0, device=dev), 1)
 
 
 # ------------------------------------------------------------------ ADC --

@@ -1,5 +1,7 @@
 """``repro_torch.core.distances`` on the CPU against ``repro.core.distances``
-(mirrors ``tests/test_distances.py``, plus the tie order of top-k)."""
+(mirrors ``tests/test_distances.py``, plus the tie order of top-k and the
+routing of ``ops.topk_smallest``: a CPU tensor to the plain stable sort, a
+fake tensor to the custom op's shapes)."""
 import numpy as np
 import pytest
 
@@ -11,6 +13,7 @@ from repro.core import distances as jd  # noqa: E402
 from repro_torch.core.distances import (np_sq_l2, pairwise,  # noqa: E402
                                         pairwise_neg_ip, pairwise_sq_l2,
                                         topk_smallest)
+from repro_torch.kernels import ops, ref, topk_select  # noqa: E402
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int8])
@@ -97,6 +100,54 @@ def test_topk_smallest_ties_take_lower_index_first():
     _, jidx = jd.topk_smallest(jnp.asarray(d), 3)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     assert vals.tolist() == [[1.0] * 3, [2.0] * 3]
+
+
+@pytest.mark.parametrize("shape,k", [((6, 40), 5), ((3, 4, 70), 16), ((9,), 9),
+                                     ((2, 640), 40), ((1, 1), 1)])
+def test_ops_topk_smallest_on_the_cpu_is_the_plain_version(shape, k):
+    # small integers: ties everywhere, lower index first as jax.lax.top_k
+    rng = np.random.default_rng(sum(shape) + k)
+    d = rng.integers(0, 4, size=shape).astype(np.float32)
+    d[..., ::7] = np.inf
+    before = topk_select.topk_smallest.launches
+    vals, idx = ops.topk_smallest(torch.from_numpy(d), k)
+    assert topk_select.topk_smallest.launches == before
+    want_v, want_i = ref.stable_topk_smallest(torch.from_numpy(d), k)
+    assert idx.dtype == torch.int64 and torch.equal(idx, want_i)
+    assert torch.equal(vals, want_v)
+    assert topk_smallest is ops.topk_smallest
+    jvals, jidx = jd.topk_smallest(jnp.asarray(d), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+def test_ops_topk_smallest_on_fake_tensors_launches_nothing(monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def boom(*a, **kw):
+        raise AssertionError("a fake tensor reached a top-k")
+    monkeypatch.setattr(topk_select, "topk_smallest", boom)
+    monkeypatch.setattr(ref, "stable_topk_smallest", boom)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for device in ("cpu", "cuda"):
+            d = torch.empty((500, 19_700), device=device)
+            vals, idx = ops.topk_smallest(d, 16)
+            assert (vals.shape, vals.dtype, idx.shape, idx.dtype) == (
+                (500, 16), torch.float32, (500, 16), torch.int64)
+            vals, idx = ops.topk_smallest(torch.empty((2, 3, 40), device=device), 10)
+            assert vals.shape == idx.shape == (2, 3, 10)
+        with pytest.raises(TypeError):       # the kernel takes float32 only
+            ops.topk_smallest(torch.empty((4, 9), device="cuda",
+                                          dtype=torch.float64), 3)
+        with pytest.raises(ValueError):      # nor k past N on the card
+            ops.topk_smallest(torch.empty((4, 9), device="cuda"), 10)
+
+
+def test_ops_topk_smallest_refuses_other_devices():
+    with pytest.raises(ValueError):
+        ops.topk_smallest(torch.empty((3, 8), device="meta"), 2)
+    with pytest.raises(ValueError):
+        topk_select.topk_smallest(torch.zeros((3, 8)), 2)
 
 
 def test_self_distance_zero():

@@ -7,7 +7,11 @@ then two ranks, each holding half of the posting lists (and of the
 k-means points), are held to the reference run on each half and merged,
 and to its k-means step over all the points.
 """
+import json
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,7 @@ from torch_dist_worker import run as worker_run  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-4      # distances (f32 sums in another order)
 KM_RTOL, KM_ATOL = 1e-5, 1e-6
 SPAWN_TIMEOUT_S = 90
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -215,3 +220,22 @@ def test_two_rank_kmeans_matches_the_reference_on_all_points(two_ranks,
     for rank in range(2):
         np.testing.assert_allclose(out[rank]["cents"], want, rtol=KM_RTOL,
                                    atol=KM_ATOL)
+
+
+def test_sharded_search_ranks_tool_runs_on_two_gloo_ranks(tmp_path):
+    """``tools/sharded_search_ranks.py``, the several-card check of the
+    sharded step's top-k, on two gloo ranks at a small size: it runs the
+    step with both top-k (on the CPU both are the plain sort), every rank
+    holds the same answer, and it launches no kernel."""
+    out = tmp_path / "line.json"
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "sharded_search_ranks.py"),
+         "--device", "cpu", "--world", "2", "--lists", "600", "--max-len", "6",
+         "--dim", "8", "--queries", "16", "--nprobe", "4", "--steps", "1",
+         "--out", str(out)],
+        capture_output=True, text=True, timeout=SPAWN_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = json.loads(out.read_text())
+    assert line["ok"] and line["world"] == 2
+    assert [(r["rank"], r["lists"], r["same_bits"], r["kernel_launches"])
+            for r in line["ranks"]] == [(0, 300, True, [0, 0]), (1, 300, True, [0, 0])]

@@ -19,6 +19,10 @@ launched it.  ``--spans 0 --trace 1`` is the harness's traced run;
 Prints one JSON object: ``correct`` and the compared numbers, queries/s
 and recall, ``index_build_s``, the per-layer readings of
 ``vsbench.stages.readings`` (``None`` where there is nothing to read), the
+window's launches a batch of each hand-written kernel that the search runs,
+from its ``launches`` counter (``kernel_launches_per_batch``: the
+selection kernel's show it engaged on every batch; ``None`` for a kernel
+the checkout lacks), the
 stages (name -> device s, host s, launches, ranges), the device's busy and
 window seconds and idle gaps, and cross-checks: the device time launched
 inside ``vsbench.search`` that no stage holds, the five stages against
@@ -37,6 +41,22 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parents[1]
+# the search's kernels by module and launch counter, as the port names them
+KERNELS = {"l2_distance": ("repro_torch.kernels.distance", "l2_distance"),
+           "topk_select": ("repro_torch.kernels.topk_select", "topk_smallest")}
+
+
+def launch_counts() -> dict:
+    """Each of :data:`KERNELS`' launches so far, ``None`` where the
+    checkout has no such kernel."""
+    import importlib
+    out = {}
+    for name, (mod, fn) in KERNELS.items():
+        try:
+            out[name] = getattr(importlib.import_module(mod), fn).launches
+        except (ImportError, AttributeError):
+            out[name] = None
+    return out
 
 
 def cross_checks(stg: dict | None, events: list, read: dict, build_s: float,
@@ -116,9 +136,17 @@ def main(argv=None) -> int:
         events.extend(read_trace(prof))
         return events
 
+    at_start: dict = {}
+
+    def on_start(_):
+        spans.reset()
+        at_start.update(launch_counts())
+
     with mock.patch.object(devtrace, "read", keep):
         win = harness.serve(system, state, pool, gen, args.seconds, dev,
-                            bool(args.trace), lambda _: spans.reset())
+                            bool(args.trace), on_start)
+    launches = {n: (c - at_start[n]) / len(win.slots) if c is not None else None
+                for n, c in launch_counts().items()}
     window = spans.snapshot() if args.spans else None
     spans.disable()
     spans.reset()
@@ -141,6 +169,7 @@ def main(argv=None) -> int:
            "queries_per_s": len(win.slots) * gen.batch / win.seconds,
            "recall_at_10": verdict.recall, "index_build_s": build_s,
            "batches": len(win.slots), "shapes": shapes, "readings": read,
+           "kernel_launches_per_batch": launches,
            "checked": cross_checks(stg, events, read, build_s, rf.probed,
                                    rf.lengths, win.slots, gen.batch,
                                    shapes["max_len"]),
