@@ -1,13 +1,10 @@
 """The comparison that decides ``correct``: every answer the window
 produced, against the plain reference's answer to the same query.
 
-Four numbers, each judged against its limit from the cell's
-``checks/<cell>.json``:
+Each number is judged against the limit of the same name in the cell's
+``checks/<cell>.json``, which holds a limit for each number and no other.
+Three numbers are every index kind's (``GENERIC``):
 
-* ``lists_differ``: the index the window searched, against the closure
-  rule over its own centroids (``reference.search.lists_differ``): the
-  share of points not in exactly the lists the rule puts them in, near-ties
-  left out, with every unsound entry counted;
 * ``malformed``: answers with an id outside the data, an id given twice, a
   distance that is nan or out of ascending order, or fewer results than
   the reference's (limit 0).  An entry whose distance is inf is no result,
@@ -17,7 +14,15 @@ Four numbers, each judged against its limit from the cell's
   ``|q|^2 + |x|^2``: the scan's arithmetic;
 * ``differ``: the share of answers whose k exact distances, sorted, differ
   from those of the reference's answer by more than a near-tie at any
-  rank: the lists, the probe, the scan, the dedup and the top-k.
+  rank: the index, its search, the dedup and the top-k.
+
+The rest are the index kind's own (``kinds/<index>/kind.py``'s
+``NUMBERS``), each worked out by its reference (``Answers.numbers``): the
+SPANN kind's is ``lists_differ``, the index the window searched against
+the closure rule over its own centroids
+(``reference.search.lists_differ``): the share of points not in exactly
+the lists the rule puts them in, near-ties left out, with every unsound
+entry counted.
 
 A near-tie is a gap within ``NEAR_TIE · (|q|^2 + max |x|^2)``: two points
 that float32 cannot tell apart there.  The port's and the reference's
@@ -34,24 +39,34 @@ import hashlib
 import numpy as np
 
 NEAR_TIE = 2e-6
-NAMES = ("malformed", "lists_differ", "dist_err", "differ")
+GENERIC = ("malformed", "dist_err", "differ")
 
 
 @dataclasses.dataclass
 class Verdict:
     answers: int               # queries answered in the window
     values: dict               # name -> number compared
-    limits: dict               # name -> its limit
+    limits: dict               # name -> its limit, in the checks file's order
     recall: float              # mean recall@k of every answer
     why_bad: dict              # reason -> answers malformed for it
 
     @property
     def correct(self) -> bool:
-        return all(self.values[n] <= self.limits[n] for n in NAMES)
+        return all(self.values[n] <= self.limits[n] for n in self.limits)
 
     def record(self) -> dict:
         return {n: {"value": self.values[n], "limit": self.limits[n]}
-                for n in NAMES}
+                for n in self.limits}
+
+
+def require(names, limits: dict) -> None:
+    """Raise unless ``limits`` holds a limit for each of ``names`` and no
+    other."""
+    missing = sorted(set(names) - set(limits))
+    stray = sorted(set(limits) - set(names))
+    if missing or stray:
+        raise ValueError(f"numbers without a limit: {missing}; limits that "
+                         f"no number uses: {stray}")
 
 
 def exact_sq(data: np.ndarray, q: np.ndarray, ids: np.ndarray) -> np.ndarray:
@@ -96,17 +111,23 @@ def _rows(ids, dists, q, ref_exact, data, max_norm):
 
 def judge(slots: np.ndarray, ids: np.ndarray, dists: np.ndarray,
           pool: np.ndarray, data: np.ndarray, ref_ids: np.ndarray,
-          gt: np.ndarray, batch: int, limits: dict,
-          lists_differ: float) -> Verdict:
+          gt: np.ndarray, batch: int, limits: dict, own) -> Verdict:
     """Judge the window's answers.
 
     ``slots`` (nb,) is the first pool row of each batch sent, ``ids`` and
     ``dists`` (nb, batch, k) its answers as they reached the host,
     ``ref_ids`` (P, k) the reference's answer to each pool query and ``gt``
-    (P, k) its exact nearest ids; ``lists_differ`` is the index's number.
-    An answer given again with the same bits
-    is judged once and counted each time.
+    (P, k) its exact nearest ids; ``own`` maps the index kind's own
+    numbers to their values.  A bare number for ``own`` (as
+    ``tools/trace_stages.py`` calls) is the one number that ``limits``
+    names beside ``GENERIC``.  An answer given again with
+    the same bits is judged once and counted each time.
     """
+    if not isinstance(own, dict):
+        own = {n: own for n in limits if n not in GENERIC}
+        if len(own) != 1:
+            raise ValueError(f"a bare number for limits {sorted(limits)}")
+    require((*GENERIC, *own), limits)
     k = ids.shape[2]
     max_norm = float((data.astype(np.float64) ** 2).sum(-1).max())
     groups: dict[bytes, list[int]] = {}
@@ -137,7 +158,6 @@ def judge(slots: np.ndarray, ids: np.ndarray, dists: np.ndarray,
         found = np.where(np.isfinite(dists[b]), ids[b], -1)
         hits += w * int((g[:, :, None] == found[:, None, :]).any(2).sum())
     answers = len(slots) * batch
-    values = {"malformed": n_bad, "lists_differ": lists_differ,
-              "dist_err": widest,
-              "differ": n_differ / answers}
+    values = {"malformed": n_bad, "dist_err": widest,
+              "differ": n_differ / answers, **own}
     return Verdict(answers, values, dict(limits), hits / (answers * k), why_bad)

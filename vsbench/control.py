@@ -12,8 +12,8 @@ build on the same seed.  The cells share one configuration: each seed
 makes its data and builds the program's index once, and each cell runs a
 short window on it through the harness's closed loop (at least one walk of
 the pool, every query answered), judged as a benchmark run judges it.  A
-control seed that is also a program seed reuses that build.  The
-benchmark's own runs never run this.
+control seed that is also a program seed reuses that build.  The cells
+are the SPANN kind's.  The benchmark's own runs never run this.
 """
 import time
 
@@ -47,7 +47,7 @@ class Control:
                                    tf32=True)
         return ids, dists
 
-    def lists(self, state):
+    def built(self, state):
         from vsbench.reference import search as ref
         ids, lens = ref.padded_lists(self.index)
         return {"centroids": self.index.centroids.cpu().numpy(),
@@ -63,13 +63,18 @@ def readings(root: Path, cell_names: list[str], seeds: list[int],
 
     import torch
 
-    from vsbench import check, datagen, harness, loadgen
+    from vsbench import check, datagen, harness, kinds, loadgen
 
     cells = [harness.load_cell(root, c) for c in cell_names]
     if len({json.dumps(c.config, sort_keys=True) for c in cells}) != 1:
         raise ValueError("the cells of one readings run share a configuration")
+    kind = cells[0].kind
+    if kind.name != "spann":
+        raise ValueError(f"the TF32 control is SPANN's, not {kind.name!r}'s")
+    spann = kinds.load_module(kind.path / "reference.py",
+                              "vsbench_kind_spann_reference")
     spec = datagen.spec_from_config(cells[0].config)
-    params = harness.index_params(cells[0].config)
+    params = kind.params(cells[0].config)
     program.prepare(device)
     out = {"cells": cell_names, "program": {c: [] for c in cell_names},
            "control": {c: [] for c in cell_names}}
@@ -77,26 +82,26 @@ def readings(root: Path, cell_names: list[str], seeds: list[int],
         data, pool = datagen.make(spec, seed)
         t = time.perf_counter()
         state = program.build(data, params, device)
-        built = program.lists(state)
+        built = program.built(state)
         log(f"seed {seed}: program index {state['shapes']} in "
             f"{time.perf_counter() - t:.1f} s")
         xd = torch.from_numpy(data).to(device)
         ctl = (Control(xd, built["centroids"], params)
                if seed in control_seeds else None)
         for cell in cells:
-            gen = loadgen.generator(cell.traffic, len(pool))
-            rf = harness.reference(data, pool, built["centroids"], params,
-                                   gen, device)
+            gen = loadgen.generator(cell.traffic, len(pool), kind.knobs)
+            rf = spann.over_centroids(data, pool, built["centroids"], params,
+                                      gen, device)
             for who, system, secs, lists in (
                     ("program", program, seconds, built),
-                    ("control", ctl, 0.0, ctl and ctl.lists(None))):
+                    ("control", ctl, 0.0, ctl and ctl.built(None))):
                 if system is None or (who == "program" and seed not in seeds):
                     continue
                 win = harness.serve(system, state, pool, gen, secs, device,
                                     False)
                 v = check.judge(win.slots, win.ids, win.dists, pool, data,
                                 rf.ids, rf.gt, gen.batch, cell.limits,
-                                rf.lists_differ(lists)[0])
+                                {"lists_differ": rf.lists_differ(lists)[0]})
                 row = {"seed": seed, "answers": v.answers, "recall": v.recall,
                        "correct": v.correct, **v.values}
                 out[who][cell.name].append(row)
@@ -105,9 +110,10 @@ def readings(root: Path, cell_names: list[str], seeds: list[int],
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    limits = {c.name: c.limits for c in cells}
     for who, agg in (("program", max), ("control", min)):
         out[f"{who}_{agg.__name__}"] = {
-            c: {n: agg(r[n] for r in rows) for n in check.NAMES}
+            c: {n: agg(r[n] for r in rows) for n in limits[c]}
             for c, rows in out[who].items() if rows}
     return out
 

@@ -3,23 +3,30 @@ files, drives the system under test through set-up and the measured
 window, judges the answers against the plain reference, and reads the
 metrics.
 
-Nothing here imports the port: the system under test is an object with
-``prepare(device)``, ``build(data, params, device) -> state``,
-``search(state, queries, nprobe, k) -> (ids, dists)`` and
-``lists(state) -> {"centroids", "list_ids", "list_len"}`` (the index it
-searched, as host arrays), which ``run.py`` makes from ``repro_torch``
-(``system.py``) and the control script from the reference.  A cell is found by name: its configuration is the file that
+A cell is found by name: its configuration is the file that
 ``BENCHMARK.json`` names, its traffic ``traffic/<traffic>.json``, its limits
 ``checks/<cell>.json`` and each metric ``metrics/<metric>.py``, whose
 ``read(record)`` returns the number or ``None`` when there is nothing to
-read.
+read.  The configuration's ``"index"`` names its index kind (``kinds/``:
+``spann`` where absent), which brings the build parameters, the traffic's
+knobs, the system under test, the plain reference with its own compared
+numbers, and each batch's work; a new kind is new files there
+(``vsbench/kinds/__init__.py`` sets them out).
+
+Nothing here imports the port: the system under test is a ``Program`` as
+``vsbench/system.py`` sets out, which ``run.py`` makes from the kind's
+``system.py`` and the control script from the reference.  In the traced
+run of a cell with a per-layer metric whose source is ``program_span`` or
+``program_counter``, the program's recorder is on from before the build:
+the record keeps its snapshot of the build, its snapshot of the window
+(reset as the first timed batch is sent) and the window's trace events,
+for ``vsbench.stages``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import gc
-import importlib.util
 import json
 import sys
 import time
@@ -28,10 +35,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vsbench import check, datagen, devtrace, loadgen, work
-from vsbench.reference import search as ref
+from vsbench import check, datagen, devtrace, kinds, loadgen
 
 WARM_S = 0.5        # seconds of batches before the window: clocks settle
+ROOT = Path(__file__).resolve().parents[1]
+PROGRAM_SOURCES = ("program_span", "program_counter")
 
 
 @dataclasses.dataclass
@@ -42,10 +50,12 @@ class Cell:
     traffic: dict
     limits: dict
     metrics: dict                # "end_to_end" / "per_layer" -> [entry]
+    kind: kinds.Kind
 
 
 def load_cell(root: Path, name: str) -> Cell:
-    """The cell ``name`` of ``root/BENCHMARK.json`` with its files."""
+    """The cell ``name`` of ``root/BENCHMARK.json`` with its files and its
+    index kind; raises where its limits are not its numbers'."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     work_ = {w["name"]: w for w in bench["workloads"]}
     if name not in work_:
@@ -54,33 +64,38 @@ def load_cell(root: Path, name: str) -> Cell:
     w = work_[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     here = root / "vsbench"
-    metrics = {kind: [m for m in bench[kind]
+    metrics = {part: [m for m in bench[part]
                       if name in m.get("workloads", [name])]
-               for kind in ("end_to_end", "per_layer")}
+               for part in ("end_to_end", "per_layer")}
+    config = json.loads((root / conf["file"]).read_text())
+    kind = kinds.load(root, kinds.index_of(config))
+    limits = json.loads((here / "checks" / f"{name}.json").read_text())
+    check.require((*check.GENERIC, *kind.numbers), limits)
     return Cell(
-        name=name, chips=w["chips"],
-        config=json.loads((root / conf["file"]).read_text()),
+        name=name, chips=w["chips"], config=config,
         traffic=json.loads((here / "traffic" / f"{w['traffic']}.json").read_text()),
-        limits=json.loads((here / "checks" / f"{name}.json").read_text()),
-        metrics=metrics)
+        limits=limits, metrics=metrics, kind=kind)
 
 
 def load_reader(root: Path, metric: str):
     """``read`` of ``vsbench/metrics/<metric>.py``."""
-    path = root / "vsbench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"vsbench_metric_{metric}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
-
-
-INDEX_KEYS = ("centroid_frac", "num_replica", "closure_eps", "kmeans_iters",
-              "branch", "balance_penalty")
+    return kinds.load_module(root / "vsbench" / "metrics" / f"{metric}.py",
+                             f"vsbench_metric_{metric}").read
 
 
 def index_params(cfg: dict) -> dict:
-    """The cluster index's build parameters a configuration file states."""
-    return {**{key: cfg[key] for key in INDEX_KEYS}, "seed": cfg["index_seed"]}
+    """The build parameters a configuration file states, by its kind (the
+    call of ``tools/trace_stages.py`` and ``tools/ab_search.py``)."""
+    return kinds.load(ROOT, kinds.index_of(cfg)).params(cfg)
+
+
+def reference(data, pool, centroids, params, gen, device):
+    """SPANN's reference over the program's ``centroids``
+    (``kinds/spann/reference.py``'s ``over_centroids``), as
+    ``tools/trace_stages.py`` calls it."""
+    spann = kinds.load_module(ROOT / "vsbench" / "kinds" / "spann"
+                              / "reference.py", "vsbench_kind_spann_reference")
+    return spann.over_centroids(data, pool, centroids, params, gen, device)
 
 
 @dataclasses.dataclass
@@ -96,9 +111,13 @@ class Record:
     slots: np.ndarray            # (batches,) first pool row of each batch
     batch: int
     verdict: check.Verdict
-    shapes: dict                 # n_lists, dim, max_len, entries
+    shapes: dict                 # the state's "shapes": the index's sizes
     batch_work: dict             # slot -> (FLOP, bytes) the search needs
     trace: devtrace.Trace | None
+    # the program's recorder, where a per-layer metric reads it
+    build_snapshot: dict | None = None     # after the build
+    window_snapshot: dict | None = None    # of the window's batches
+    events: list | None = None             # the traced window's events
 
     @property
     def queries(self) -> int:
@@ -123,16 +142,18 @@ class Window:
     ids: np.ndarray              # (batches, batch, k) answers on the host
     dists: np.ndarray
     trace: devtrace.Trace | None
+    events: list | None          # the trace's events, where kept
 
 
 def serve(system, state, pool: np.ndarray, gen: loadgen.ClosedLoop,
           seconds: float, device: torch.device, traced: bool,
-          on_start=None) -> Window:
+          on_start=None, keep_events: bool = False) -> Window:
     """Warm up for a walk of the pool and ``WARM_S``, then run the closed
     loop for ``seconds`` (and at least one walk of the pool).  The client
     sends from pinned memory and receives into pinned buffers, as a
     batch-retrieval client does.  ``on_start(t)`` is called as the first
-    timed batch is sent."""
+    timed batch is sent.  A traced window keeps its trace's events where
+    ``keep_events``."""
     cuda = device.type == "cuda"
     pool_h = torch.from_numpy(pool)
     if cuda:
@@ -144,7 +165,7 @@ def serve(system, state, pool: np.ndarray, gen: loadgen.ClosedLoop,
         with rf("vsbench.send"):
             q = pool_h[rows].to(device, non_blocking=True)
         with rf("vsbench.search"):
-            out = system.search(state, q, gen.nprobe, gen.k)
+            out = system.search(state, q, k=gen.k, **gen.knobs)
         with rf("vsbench.receive"):
             if not recv:
                 recv.extend(torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
@@ -191,113 +212,91 @@ def serve(system, state, pool: np.ndarray, gen: loadgen.ClosedLoop,
                 break
     gc.enable()
     torch.set_num_threads(threads)
-    tr = None
+    tr = events = None
     if prof is not None:
         t = time.perf_counter()
         prof.__exit__(None, None, None)
         t_exit = time.perf_counter()
+        if cuda or keep_events:
+            events = devtrace.read(prof)
         if cuda:
-            tr = devtrace.reduce(devtrace.read(prof))
+            tr = devtrace.reduce(events)
         _log(f"vsbench: trace: profiler stop {t_exit - t:.3f} s, reduce "
              f"{time.perf_counter() - t_exit:.3f} s")
     slots = np.array([gen.rows(i).start for i in range(b)])
     return Window(t_done - t_start, np.array(lat), slots,
-                  np.stack(out_ids), np.stack(out_d), tr)
-
-
-@dataclasses.dataclass
-class Reference:
-    """The plain reference's answers to every pool query, over the lists it
-    works out from the program's centroids."""
-    ids: np.ndarray              # (P, k) its search's answers
-    gt: np.ndarray               # (P, k) exact nearest ids
-    probed: np.ndarray           # (P, nprobe) lists each query probes
-    lengths: np.ndarray          # (L,) unpadded list lengths
-    index: ref.Index
-    n: int                       # points in the data
-
-    def batch_work(self, slots: np.ndarray, batch: int, dim: int, k: int
-                   ) -> dict:
-        """First pool row -> (FLOP, bytes) of that batch's search."""
-        return {int(s): work.search_batch_work(
-            self.probed[s:s + batch], self.lengths, len(self.lengths), dim, k)
-            for s in np.unique(slots)}
-
-    def lists_differ(self, built: dict) -> tuple[float, float]:
-        """``(lists_differ, unsure share)`` of the lists ``built``."""
-        return ref.lists_differ(self.index, built["list_ids"],
-                                built["list_len"], self.n)
-
-
-def reference(data: np.ndarray, pool: np.ndarray, centroids: np.ndarray,
-              params: dict, gen: loadgen.ClosedLoop, device: torch.device
-              ) -> Reference:
-    """The reference's lists over ``centroids`` and its answers."""
-    xd = torch.from_numpy(data).to(device)
-    qd = torch.from_numpy(pool).to(device)
-    index = ref.build_index(xd, torch.from_numpy(centroids).to(device), params)
-    ids, _, probed = ref.search(index, xd, qd, gen.nprobe, gen.k)
-    return Reference(ids.cpu().numpy(), ref.exact_topk(xd, qd, gen.k),
-                     probed.cpu().numpy(), index.lengths.cpu().numpy(), index,
-                     len(data))
+                  np.stack(out_ids), np.stack(out_d), tr,
+                  events if keep_events else None)
 
 
 def run(root: Path, cell: Cell, seed: int, seconds: float, traced: bool,
         device: torch.device, system, t0: float) -> dict:
     """One run of ``cell``: the result line's object.  ``t0`` is the
     process's start on ``time.perf_counter()``'s clock."""
+    kind = cell.kind
     spec = datagen.spec_from_config(cell.config)
-    params = index_params(cell.config)
+    params = kind.params(cell.config)
     system.prepare(device)
     data, pool = datagen.make(spec, seed)
-    gen = loadgen.generator(cell.traffic, len(pool))
+    gen = loadgen.generator(cell.traffic, len(pool), kind.knobs)
     _log(f"vsbench: {cell.name} seed {seed}: data {data.shape} "
          f"{data.dtype}, pool {pool.shape}, {gen.slots} batches a walk")
     if device.type == "cuda":
         torch.empty(0, device=device)      # the allocator exists from here
         torch.cuda.reset_peak_memory_stats(device)
+    recorder = (traced and hasattr(system, "trace") and any(
+        m["source"] in PROGRAM_SOURCES for m in cell.metrics["per_layer"]))
+    if recorder:
+        system.trace(True)
     t = time.perf_counter()
     state = system.build(data, params, device)
     _sync(device)
     spans = {"index_build_s": time.perf_counter() - t}
     _log(f"vsbench: index {json.dumps(state['shapes'])} in "
          f"{spans['index_build_s']:.3f} s")
+    build_snap = system.snapshot() if recorder else None
     started = []
-    win = serve(system, state, pool, gen, seconds, device, traced,
-                started.append)
+
+    def on_start(t_start: float) -> None:
+        started.append(t_start)
+        if recorder:
+            system.trace(True)       # the warm-up's records go
+    win = serve(system, state, pool, gen, seconds, device, traced, on_start,
+                keep_events=recorder)
+    window_snap = None
+    if recorder:
+        window_snap = system.snapshot()
+        system.trace(False)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     _log(f"vsbench: window {win.seconds:.6f} s, {len(win.slots)} batches, "
          f"peak {peak} bytes")
     shapes = state["shapes"]
-    built = system.lists(state)
+    built = system.built(state)
     del state                    # before the reference runs on the device
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    rf = reference(data, pool, built["centroids"], params, gen, device)
+    rf = kind.reference(data, pool, built, params, gen, device)
     ref_s = time.perf_counter() - t
-    lists, unsure = rf.lists_differ(built)
     verdict = check.judge(win.slots, win.ids, win.dists, pool, data, rf.ids,
-                          rf.gt, gen.batch, cell.limits, lists)
+                          rf.gt, gen.batch, cell.limits, rf.numbers)
     _log(f"vsbench: reference {ref_s:.3f} s, check "
          f"{time.perf_counter() - t - ref_s:.3f} s; recall "
-         f"{verdict.recall!r}; malformed answers {verdict.why_bad}; points "
-         f"on a near-tie of the closure {unsure!r}")
+         f"{verdict.recall!r}; malformed answers {verdict.why_bad}"
+         + "".join(f"; {what} {v!r}" for what, v in rf.notes.items()))
 
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     rec = Record(cell=cell, device=device, card=card,
                  setup_s=started[0] - t0, spans=spans, window_s=win.seconds,
                  latencies=win.latencies, slots=win.slots, batch=gen.batch,
-                 verdict=verdict, shapes=shapes,
-                 batch_work=rf.batch_work(win.slots, gen.batch,
-                                          data.shape[1], gen.k),
-                 trace=win.trace)
-    kind = "per_layer" if traced else "end_to_end"
+                 verdict=verdict, shapes=shapes, batch_work=rf.work,
+                 trace=win.trace, build_snapshot=build_snap,
+                 window_snapshot=window_snap, events=win.events)
     metrics = {}
-    for m in cell.metrics[kind]:
+    for m in cell.metrics["per_layer" if traced else "end_to_end"]:
         value = load_reader(root, m["name"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}

@@ -67,10 +67,8 @@ def main(argv=None) -> int:
         print(f"vsbench: repro_torch came from {repro_torch.__file__}, "
               f"not from {src}", file=sys.stderr)
         return 1
-    from vsbench.system import Program
-
     out = harness.run(ROOT, cell, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda", 0), Program(), T0)
+                      torch.device("cuda", 0), cell.kind.program(), T0)
     bad = refused_modules()
     if bad:
         print(f"vsbench: refused modules loaded: {bad}", file=sys.stderr)

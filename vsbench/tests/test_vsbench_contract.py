@@ -73,8 +73,9 @@ def test_workloads():
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
         assert w["config"] in confs and w["chips"] in (1, 4) and text(w["why"])
         cell = harness.load_cell(ROOT, w["name"])
-        loadgen.generator(cell.traffic, cell.config["n_queries"])
-        assert set(cell.limits) == set(check.NAMES)
+        loadgen.generator(cell.traffic, cell.config["n_queries"],
+                          cell.kind.knobs)
+        assert set(cell.limits) == set(check.GENERIC) | set(cell.kind.numbers)
         e2e = [m["name"] for m in cell.metrics["end_to_end"]]
         assert "setup_s" in e2e and len(e2e) >= 2
         assert cell.metrics["per_layer"]
